@@ -1,0 +1,695 @@
+"""The fused short-read mapping step, in torch.
+
+Port of ``gdiet_tpu/pipeline/device_step.py`` (see its docstring for the
+stages of mm_map_frag, GDiet-ShortReads/map.c:586-1010): merged shift
+inference + query sketch, cuckoo seed lookup, mm_seed_select, query-occ
+check, hit expansion and per-strand sort, run vote, window geometry and
+gathers, exact/substitution-only shortcuts, DP-row compaction, banded DP
+(``ops/extd2.py``: the CUDA kernel on the card, the plain version on the
+CPU), antidiagonal backtrack and output packing. The outputs — meta
+[B, 3+12K] int32 and 2-bit packed ops — are byte-identical to
+``fused_map_step``'s, so ``native.sr_finish_batch`` consumes them unchanged.
+
+uint64 values are int64 bit patterns (``gdiet_tpu_torch/u64.py``). TPU
+gather workarounds (one-hot matmul selects, chunk-row window gathers) are
+plain gathers here, with indices clamped explicitly where JAX clamps
+silently. The vote scan and the backtrack are plain torch loops.
+
+Not ported yet (ROADMAP): the fractional ``-i`` branch, the sharded
+``ref_axis`` path, the bisect probe, the folded DP and the banded lane
+window, ``fuse_out_device`` (a TPU-link transfer trick) and the five-stage
+re-run profiler.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace as dataclass_replace
+
+import numpy as np
+import torch
+
+from gdiet_tpu_torch import _host, u64
+from gdiet_tpu_torch.ops import extd2
+from gdiet_tpu_torch.ops.dp import CIGAR_DEL, CIGAR_INS, CIGAR_MATCH
+from gdiet_tpu_torch.ops.sketch import sketch_emit
+from gdiet_tpu_torch.u64 import ORD_MAX, U32, U64_MAX, srl
+
+I64 = torch.int64
+I32 = torch.int32
+
+
+@dataclass(frozen=True)
+class StepConfig:
+    """Static configuration of the fused step (device_step.py:243-302)."""
+
+    k: int
+    w: int
+    pattern: str
+    Lmax: int
+    S: int
+    S2: int
+    A: int
+    K: int
+    max_nb_seeds: int
+    frac_mode: bool
+    max_seeds: float
+    min_cnt: float
+    rec_frac: float
+    bw_min: int
+    bw_max: int
+    bw_frac: float
+    occ_dist: int
+    max_max_occ: int
+    q_occ_on: bool
+    q_occ_frac: float
+    mid_occ: int
+    match_a: int
+    params: tuple
+    frag_mode: bool
+    cuckoo_c1: int = 0
+    cuckoo_c2: int = 0
+    cuckoo_nb: int = 0
+    dp_frac: float = 1.0
+
+    @classmethod
+    def from_options(cls, mi, mo, mid_occ: int, Lmax: int, S: int, S2: int,
+                     A: int) -> "StepConfig":
+        frag = bool(mo.flag & _host.config.MM_F_FRAG_MODE)
+        max_nb = (800 if mo.max_frag_len == 0 else mo.max_frag_len) if frag else U32
+        return cls(
+            k=mi.k, w=mi.w, pattern=mo.pattern, Lmax=Lmax, S=S, S2=S2, A=A,
+            K=mo.AF_max_loc, max_nb_seeds=max_nb, frac_mode=mo.max_seeds < 1,
+            max_seeds=mo.max_seeds, min_cnt=mo.min_cnt,
+            rec_frac=mo.rec_threshold_frac, bw_min=mo.bw_min,
+            bw_max=mo.bw_max, bw_frac=mo.bw_frac, occ_dist=mo.occ_dist,
+            max_max_occ=mo.max_max_occ, q_occ_on=mo.q_occ_frac > 0,
+            q_occ_frac=mo.q_occ_frac, mid_occ=mid_occ, match_a=mo.a,
+            params=(mo.a, mo.b, mo.q, mo.e, mo.q2, mo.e2), frag_mode=frag,
+        )
+
+
+def dp_rows(N: int, dp_frac: float) -> int:
+    """Static DP/backtrack row budget for an N-slot candidate set."""
+    return min(N, max(128, -(-int(N * dp_frac) // 128) * 128))
+
+
+def _max_safe_subs(params) -> int:
+    """Largest diagonal-mismatch count with a provably all-M alignment
+    (device_step.py:310-325)."""
+    a, b, q, e, q2, e2 = params
+    g = 1
+    while g < 64 and b * g < 2 * min(q + e * g, q2 + e2 * g):
+        g += 1
+    return g - 1
+
+
+def _pattern_tables(cfg: StepConfig):
+    """Per-shift gather maps [W, Dmax] + prefix-ones table [W+1]."""
+    pat = _host.pattern
+    maps = [pat.gather_map(cfg.Lmax, cfg.pattern, s) for s in range(len(cfg.pattern))]
+    Dmax = max(len(m) for m in maps)
+    W = len(cfg.pattern)
+    arr = np.full((W, Dmax), cfg.Lmax - 1, np.int64)
+    for s, m in enumerate(maps):
+        arr[s, : len(m)] = m
+    pref = np.zeros(W + 1, np.int64)
+    for i, c in enumerate(cfg.pattern):
+        pref[i + 1] = pref[i] + (c == "1")
+    return arr, pref, Dmax
+
+
+def _diet_len(lens, shift: int, pref, W: int):
+    """diet_length (sketch.c:1942-1948): [B] int64."""
+    eff = torch.clamp(lens - shift, min=0)
+    return (eff // W) * pref[W] + pref[eff % W]
+
+
+def _to_i32(v):
+    v = v & U32
+    return torch.where(v >= (1 << 31), v - (1 << 32), v)
+
+
+def _cummax(x, dim=1):
+    return torch.cummax(x, dim=dim).values
+
+
+# ---------------------------------------------------------------------------
+# phases 1-3: sketch, lookup, seed selection, hit expansion
+# ---------------------------------------------------------------------------
+def cuckoo_lookup(q, table, cfg: StepConfig):
+    """mm_idx_get (index.c:84-100) as a two-sided bucketed cuckoo probe:
+    each side gathers its bucket's 8 words (k0..k3, v0..v3). Returns
+    (start, count) int64, 0 where the key is absent."""
+    NB = cfg.cuckoo_nb
+    slots = torch.arange(8, dtype=I64, device=q.device)
+    v = torch.zeros_like(q)
+    found = torch.zeros(q.shape, dtype=torch.bool, device=q.device)
+    for b in (u64.range_map(q, cfg.cuckoo_c1, NB),
+              u64.range_map(q, cfg.cuckoo_c2, NB) + NB):
+        ent = table[b[..., None] * 8 + slots]
+        m = ent[..., :4] == q[..., None]
+        # keys are unique: at most one slot of both sides matches
+        v = v + torch.where(m, ent[..., 4:], 0).sum(-1)
+        found = found | m.any(-1)
+    s = srl(v, 24)
+    c = v & 0xFFFFFF
+    return torch.where(found, s, 0), torch.where(found, c, 0)
+
+
+def _seed_select(cnts, qpos, seed_ok, lens, cfg: StepConfig):
+    """mm_seed_select (seed.c:66-106) exactly, as sorts + scans
+    (device_step.py:703-768). Returns the kept mask [B, S]."""
+    B, S = cnts.shape
+    dev = cnts.device
+    present = seed_ok & (cnts > 0)
+    low = present & (cnts <= cfg.mid_occ)
+    high = present & ~low
+    n_present = present.sum(1)
+    idx = torch.arange(S, dtype=I64, device=dev)[None, :].expand(B, S)
+    q64 = qpos.to(I64)
+
+    BIGP = 1 << 62
+    lowkey = (idx << 32) | q64
+    ps_pack = _cummax(torch.where(low, lowkey, -1))
+    ps = torch.where(ps_pack >= 0, ps_pack & U32, 0)
+    pe_pack = torch.flip(torch.cummin(torch.flip(
+        torch.where(low, lowkey, BIGP), [1]), dim=1).values, [1])
+    pe = torch.where(pe_pack < BIGP, pe_pack & U32, lens[:, None])
+
+    H = ((pe - ps).to(torch.float64) / cfg.occ_dist + 0.499).to(I64)
+    H = torch.clamp(H, max=128)  # MAX_MAX_HIGH_OCC
+
+    sid = torch.cumsum(low.to(I64), dim=1)
+    BIG = 1 << 62
+    nq = torch.clamp(cnts.to(I64), max=0xFFFFFF)
+    key = torch.where(high, (sid << 40) | (nq << 16) | idx, BIG)
+    perm = torch.sort(key, dim=1, stable=True).indices
+    key_s = torch.gather(key, 1, perm)
+    H_s = torch.gather(H, 1, perm)
+    grp = key_s >> 40
+    is_start = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
+                          grp[:, 1:] != grp[:, :-1]], dim=1)
+    start_idx = _cummax(torch.where(is_start, idx, -1))
+    rank = idx - start_idx
+    sel_sorted = (key_s < BIG) & (rank < H_s)
+    selected = torch.zeros_like(sel_sorted).scatter(1, perm, sel_sorted)
+
+    kept = present & (low | (selected & (cnts <= cfg.max_max_occ)))
+    return torch.where((n_present <= 1)[:, None], present, kept)
+
+
+def _expand_hits(starts, counts, qpos, qstrand, positions, extracted, A: int):
+    """Flatten ragged per-seed hit lists to [B, A], project to diagonal
+    keys (map.c:294-311) and sort each strand (device_step.py:173-240)."""
+    B, S = starts.shape
+    dev = starts.device
+    cum = torch.cumsum(counts, dim=1)
+    total = cum[:, -1]
+    a_idx = torch.arange(A, dtype=I64, device=dev)[None, :]
+    # owning seed per hit slot: #{s : cum[s] <= a}
+    sid = torch.searchsorted(cum, a_idx.expand(B, A).contiguous(), right=True)
+    sid_c = torch.clamp(sid, 0, S - 1)
+    prev_tbl = torch.cat([torch.zeros((B, 1), dtype=I64, device=dev), cum[:, :-1]], 1)
+    off_in = a_idx - torch.gather(prev_tbl, 1, sid_c)
+    pidx = torch.gather(starts, 1, sid_c) + off_in
+    hit = positions[torch.clamp(pidx, 0, positions.shape[0] - 1)]
+    ok = a_idx < total[:, None]
+
+    qp = torch.gather(qpos, 1, sid_c)
+    qs = torch.gather(qstrand, 1, sid_c)
+    strand = (hit & 1).to(I32) ^ qs
+    loc = (hit & U32) >> 1
+    chrom = srl(hit, 32)
+    qp64 = qp.to(I64)
+    proj_f = (loc + extracted[:, None].to(I64) - qp64) & U32
+    proj_r = (loc + qp64) & U32
+    out = []
+    for sgn, proj in ((0, proj_f), (1, proj_r)):
+        val = ok & (strand == sgn)
+        key = torch.where(val, (chrom << 32) | proj, U64_MAX)
+        perm = u64.argsort_u64(key, dim=1)
+        out += [torch.gather(key, 1, perm), torch.gather(qp, 1, perm),
+                torch.gather(val, 1, perm)]
+    return (*out, total)
+
+
+def collect_hits(codes, lens, tables: dict, cfg: StepConfig):
+    """Device front of mm_map_frag (phases 1-3, device_step.py:771-1043),
+    merged shift/sketch branch (absolute ``-i``).
+
+    Returns (fallback, shift, extracted, mv_n, capped, fk, fq, fok, rk, rq,
+    rok)."""
+    if cfg.frac_mode:
+        raise NotImplementedError(
+            "fractional -i (< 1) is not ported yet: see ROADMAP.md Queue 1")
+    B = codes.shape[0]
+    dev = codes.device
+    W = len(cfg.pattern)
+    k, w = cfg.k, cfg.w
+    maps, pref = tables["maps"], tables["pref"]
+    table = tables["cuckoo"]
+    rid0 = torch.zeros((B,), dtype=I64, device=dev)
+    Dmax = maps.shape[1]
+    fallback = torch.zeros((B,), dtype=torch.bool, device=dev)
+
+    # ---- phases 1+2 merged: sketch each shift once at the full budget,
+    # probe only the first -i seeds' counts for the shift argmax ----
+    cap_int = int(cfg.max_seeds)
+    unlimited = cap_int == 0  # a cap of 0 means "no cap" (sketch.c push loop)
+    cap_cols = cfg.S if cap_int <= 0 else min(cfg.S, cap_int)
+    per_shift, effs = [], []
+    for s in range(W):
+        dlen = _diet_len(lens, s, pref, W)
+        dc = codes[:, maps[s]]
+        xs_s, ys_s, _, n_s = sketch_emit(
+            dc, dlen, maps[s].expand(B, Dmax), rid0, k, w, cfg.S,
+            final_flush_ge=True)
+        eff = n_s if unlimited else torch.clamp(n_s, max=cap_int)
+        if unlimited or cap_int > cfg.S:
+            fallback = fallback | (n_s >= cfg.S)
+        effs.append(eff)
+        per_shift.append((xs_s, ys_s, n_s))
+    qcat = srl(torch.cat([t[0][:, :cap_cols] for t in per_shift], dim=1), 8)
+    _, cnt_cat = cuckoo_lookup(qcat, table, cfg)
+    col = torch.arange(cap_cols, dtype=I64, device=dev)[None, :]
+    nb_hits = torch.stack([
+        (cnt_cat[:, s * cap_cols:(s + 1) * cap_cols] * (col < effs[s][:, None])).sum(1)
+        for s in range(W)])
+    shift = torch.argmax(nb_hits, dim=0)  # first maximal index on ties
+
+    def _sel(field):
+        out = per_shift[0][field]
+        for s in range(1, W):
+            c = shift == s
+            out = torch.where(c[:, None] if out.dim() == 2 else c,
+                              per_shift[s][field], out)
+        return out
+
+    xs, ys, n3 = _sel(0), _sel(1), _sel(2)
+    if cfg.S < cfg.max_nb_seeds:
+        fallback = fallback | (n3 > cfg.S)
+
+    cap_col = min(cfg.max_nb_seeds, cfg.S) - 1
+    capped = n3 >= cfg.max_nb_seeds
+    extracted = torch.where(capped, (ys[:, cap_col] & U32) >> 1, lens)
+    mv_n = torch.clamp(n3, max=cfg.max_nb_seeds)
+    pos = torch.arange(cfg.S, dtype=I64, device=dev)[None, :]
+    seed_ok = pos < torch.clamp(mv_n, max=cfg.S)[:, None]
+    if cfg.q_occ_on:
+        # mm_seed_mz_flt (seed.c:5-29) is a no-op unless the longest run of
+        # equal minimizers exceeds both bounds; only then fall back
+        xs_sorted = torch.sort(u64.ordered(torch.where(seed_ok, xs, U64_MAX)),
+                               dim=1).values
+        is_start = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
+                              xs_sorted[:, 1:] != xs_sorted[:, :-1]], dim=1)
+        run_start = _cummax(torch.where(is_start, pos, -1))
+        dup_ok = torch.where(xs_sorted != ORD_MAX, pos - run_start + 1, 0)
+        maxdup = dup_ok.max(dim=1).values
+        noop = (maxdup <= cfg.mid_occ) | (
+            maxdup.to(torch.float64) <= mv_n.to(torch.float64) * cfg.q_occ_frac)
+        fallback = fallback | ((mv_n > cfg.mid_occ) & ~noop)
+
+    # ---- phase 3: seed lookup + hit expansion ----
+    starts, cnts = cuckoo_lookup(torch.where(seed_ok, srl(xs, 8), U64_MAX), table, cfg)
+    qpos = ((ys & U32) >> 1).to(I32)
+    if cfg.occ_dist > 0 and cfg.max_max_occ > cfg.mid_occ:
+        kept = _seed_select(cnts, qpos, seed_ok, lens, cfg)
+    else:
+        kept = seed_ok & (cnts > 0) & (cnts <= cfg.mid_occ)
+    kcounts = torch.where(kept, cnts, 0)
+    fallback = fallback | (kcounts.sum(1) > cfg.A)
+    qstrand = (ys & 1).to(I32)
+    fk, fq, fok, rk, rq, rok, _ = _expand_hits(
+        starts, kcounts, qpos, qstrand, tables["positions"], extracted, cfg.A)
+    return fallback, shift, extracted, mv_n, capped, fk, fq, fok, rk, rq, rok
+
+
+# ---------------------------------------------------------------------------
+# phase 4: vote (plain loop over the hit stream)
+# ---------------------------------------------------------------------------
+def vote_scan(keys, qpos, valid, strand: list, vt_distance, vt_threshold,
+              vt_rec_threshold, K: int) -> dict:
+    """vote (map.c:447-584) over the concatenated fwd/rev hit stream
+    (device_step.py:53-170): top-K candidates kept by the reference's
+    insertion (one backward bubble pass) plus the recovery candidate.
+    ``strand`` is the per-column strand (python ints)."""
+    B, M = keys.shape
+    dev = keys.device
+
+    def z(dtype, n=None, fill=0):
+        shape = (B,) if n is None else (B, n)
+        return torch.full(shape, fill, dtype=dtype, device=dev)
+
+    head_t, head_valid = z(I64), z(torch.bool)
+    head_str, fq, lq, cnt = z(I32), z(I32), z(I32), z(I32)
+    k_score, k_target = z(I32, K, -1), z(I64, K)
+    k_fq, k_lq, k_str = z(I32, K), z(I32, K), z(I32, K)
+    out_len = z(I32)
+    r_score, r_target, r_fq, r_lq, r_str = z(I32), z(I64), z(I32), z(I32), z(I32)
+
+    def emit(do_emit):
+        nonlocal k_score, k_target, k_fq, k_lq, k_str, out_len
+        nonlocal r_score, r_target, r_fq, r_lq, r_str
+        passes = do_emit & (cnt > vt_threshold)
+        full = out_len == K
+        insert = passes & ~(full & (k_score[:, K - 1] >= cnt))
+        slot = torch.where(full, K - 1, out_len).to(I64)
+        ins = insert[:, None] & (torch.arange(K, device=dev)[None, :] == slot[:, None])
+        cols = [torch.where(ins, val[:, None], arr) for arr, val in (
+            (k_score, cnt), (k_target, head_t), (k_fq, fq), (k_lq, lq),
+            (k_str, head_str))]
+        for kk in range(K - 1, 0, -1):  # the reference's insertion loop
+            swap = insert & (cols[0][:, kk] > cols[0][:, kk - 1])
+            for c in cols:
+                a, b = c[:, kk - 1].clone(), c[:, kk].clone()
+                c[:, kk] = torch.where(swap, a, b)
+                c[:, kk - 1] = torch.where(swap, b, a)
+        k_score, k_target, k_fq, k_lq, k_str = cols
+        new_len = torch.where(insert & ~full, out_len + 1, out_len)
+        rec = (do_emit & ~passes & (out_len == 0) & (cnt > vt_rec_threshold)
+               & (cnt > r_score))
+        out_len = new_len
+        r_score = torch.where(rec, cnt, r_score)
+        r_target = torch.where(rec, head_t, r_target)
+        r_fq = torch.where(rec, fq, r_fq)
+        r_lq = torch.where(rec, lq, r_lq)
+        r_str = torch.where(rec, head_str, r_str)
+
+    for m in range(M):
+        t, q, ok, sgn = keys[:, m], qpos[:, m], valid[:, m], strand[m]
+        in_run = head_valid & ok & (head_str == sgn) & u64.ule(t - head_t, vt_distance)
+        ext_f = in_run & (q < fq)
+        new_fq = torch.where(ext_f, q, fq)
+        new_head = torch.where(ext_f, t, head_t)
+        new_lq = torch.where(in_run & (q > lq), q, lq)
+        emit(head_valid & ~in_run)
+        head_t = torch.where(in_run, new_head, t)
+        fq = torch.where(in_run, new_fq, q)
+        lq = torch.where(in_run, new_lq, q)
+        cnt = torch.where(in_run, cnt + 1, 1)
+        head_valid = in_run | ok
+        head_str = torch.where(in_run, head_str, sgn)
+    emit(head_valid)
+    return {"k_score": k_score, "k_target": k_target, "k_fq": k_fq,
+            "k_lq": k_lq, "k_str": k_str, "out_len": out_len,
+            "r_score": r_score, "r_target": r_target, "r_fq": r_fq,
+            "r_lq": r_lq, "r_str": r_str}
+
+
+# ---------------------------------------------------------------------------
+# phases 7-8 helpers: windows, backtrack, packing
+# ---------------------------------------------------------------------------
+def window_rows_packed(packed, nmask, fstart, L: int):
+    """out[n, j] = reference code at base fstart[n]+j from the 2-bit pack,
+    4 where the N mask is set (device_step.py:1106-1139). Out-of-range
+    bases are clamped; callers mask them."""
+    total = packed.shape[0] * 4
+    p = torch.clamp(fstart[:, None] + torch.arange(L, dtype=I64, device=fstart.device),
+                    0, total - 1)
+    out = (packed[p >> 2].to(I32) >> (2 * (p & 3)).to(I32)) & 3
+    if nmask is not None:
+        # for an n-base reference p < 4*ceil(n/4) <= 8*ceil(n/8), so p >> 3
+        # stays inside the mask's ceil(n/8) bytes
+        nb = (nmask[p >> 3].to(I32) >> (p & 7).to(I32)) & 1
+        out = torch.where(nb != 0, 4, out)
+    return out.to(torch.uint8)
+
+
+def backtrack_antidiag(dirs, dp_lens, band, Lmax: int):
+    """Antidiagonal-synchronous ksw_backtrack (ksw2.h:131-163) over the
+    dirs layout of ops/dp.py (device_step.py:452-585 with fold=False and
+    no lane window). Ops stream back to front, one column per antidiagonal
+    r = Rpad-1 .. 0 (R padded to a multiple of 8), 255 on idle columns.
+    Returns (ops [N, Rpad] u8, fin_i [N] i32, fin_j [N] i32)."""
+    N, R, Wd = dirs.shape
+    dev = dirs.device
+    T = -(-Lmax // 128) * 128
+    BT_U = 8
+    Rpad = -(-R // BT_U) * BT_U
+    lens = dp_lens.to(I32)
+    w = band.to(I32)
+    i = lens - 1
+    j = lens - 1
+    state = torch.zeros((N,), dtype=I32, device=dev)
+    active = lens > 0
+    ops = torch.full((N, Rpad), 255, dtype=torch.uint8, device=dev)
+    for r in range(R - 1, -1, -1):
+        act = active & (i + j == r)
+        st0 = torch.maximum(torch.clamp(r - lens + 1, min=0), (r - w + 1) >> 1)
+        en0 = torch.minimum(torch.clamp(lens - 1, max=r), (r + w) >> 1)
+        live = (st0 <= en0) & (r < lens + lens - 1) & (lens > 0)
+        off_r = torch.where(live, st0 // 16 * 16, T)
+        off_end_r = torch.where(live, torch.clamp((en0 + 16) // 16 * 16 - 1, max=T - 1), -1)
+        force = torch.where(i > off_end_r, 1, torch.where(i < off_r, 2, -1))
+        col = torch.clamp(i, 0, Wd - 1).to(I64)
+        tmp = torch.gather(dirs[:, r, :], 1, col[:, None])[:, 0].to(I32)
+        tmp = torch.where(force >= 0, 0, tmp)
+        nstate = torch.where(state == 0, tmp & 7,
+                             torch.where(((tmp >> (state + 2)) & 1) != 0, state, 0))
+        nstate = torch.where(nstate == 0, tmp & 7, nstate)
+        nstate = torch.where(force >= 0, force, nstate)
+        op = torch.where(nstate == 0, CIGAR_MATCH,
+                         torch.where((nstate == 1) | (nstate == 3), CIGAR_DEL, CIGAR_INS))
+        di = ((nstate == 0) | (nstate == 1) | (nstate == 3)).to(I32)
+        dj = ((nstate == 0) | (nstate == 2) | (nstate == 4)).to(I32)
+        ops[:, Rpad - 1 - r] = torch.where(act, op, 255).to(torch.uint8)
+        i = torch.where(act, i - di, i)
+        j = torch.where(act, j - dj, j)
+        state = torch.where(act, nstate, state)
+        active = active & (i >= 0) & (j >= 0)
+    return ops, i, j
+
+
+def pack_ops(ops):
+    """[N, S] op codes (0/1/2, 255 pad) -> [N, S/4] u8, 2 bits per op."""
+    N, S = ops.shape
+    v = torch.clamp(ops.to(I32), max=3).reshape(N, S // 4, 4)
+    wts = torch.tensor([1, 4, 16, 64], dtype=I32, device=ops.device)
+    return (v * wts).sum(2).to(torch.uint8)
+
+
+def unpack_ops(packed: np.ndarray) -> np.ndarray:
+    """Host inverse of pack_ops: [N, S/4] u8 -> [N, S] u8 with 3 = pad."""
+    N, SB = packed.shape
+    out = np.empty((N, SB, 4), np.uint8)
+    for j in range(4):
+        out[:, :, j] = (packed >> (2 * j)) & 3
+    return out.reshape(N, SB * 4)
+
+
+PACK_B = ("shift", "extracted", "fallback")
+PACK_BK = ("c_valid", "c_score", "c_strand", "chrom", "so", "ts",
+           "length", "exact", "dp_score", "fin_i", "fin_j", "opsrow")
+
+
+def pack_outputs(fields: dict):
+    """[B]-fields + [B, K]-fields -> one [B, 3+12K] i32 tensor."""
+    cols = [fields[n].to(I32)[:, None] for n in PACK_B]
+    cols += [fields[n].to(I32) for n in PACK_BK]
+    return torch.cat(cols, dim=1)
+
+
+def unpack_outputs(meta: np.ndarray, K: int) -> dict:
+    out = {}
+    for c, name in enumerate(PACK_B):
+        out[name] = meta[:, c]
+    for f, name in enumerate(PACK_BK):
+        out[name] = meta[:, 3 + f * K: 3 + (f + 1) * K]
+    for name in ("fallback", "c_valid", "exact"):
+        out[name] = out[name].astype(bool)
+    out["eo"] = out["so"] + out["length"] - 1
+    out["te"] = out["ts"] + out["length"] - 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the step
+# ---------------------------------------------------------------------------
+def fused_map_step(codes, lens, tables: dict, cfg: StepConfig,
+                   upto: str | None = None, mark=None):
+    """The fused forward step (device_step.py:1142-1393).
+
+    codes [B, Lmax] u8 (255 pad), lens [B] i64, ``tables`` from
+    ``TorchFusedMapper``. ``upto="seed"`` returns the sorted hit streams
+    (fk, fq, fok, rk, rq, rok), ``upto="vote"`` the vote dict, otherwise
+    {"meta": [B, 3+12K] i32, "ops": [N2, OB] u8}. ``mark(name)``, when
+    given, is called at each phase boundary (front, vote, windows, dp,
+    backtrack) for per-phase device timing."""
+    def _mark(name):
+        if mark is not None:
+            mark(name)
+
+    B = codes.shape[0]
+    dev = codes.device
+    k, K = cfg.k, cfg.K
+    fallback, shift, extracted, mv_n, capped, fk, fq, fok, rk, rq, rok = (
+        collect_hits(codes, lens, tables, cfg))
+    _mark("front")
+    if upto == "seed":
+        return fk, fq, fok, rk, rq, rok
+
+    # ---- phase 4: voting (float64 thresholds, truncated) ----
+    lens_f = lens.to(torch.float64)
+    bw = torch.clamp((lens_f * cfg.bw_frac).to(I64), cfg.bw_min, cfg.bw_max)
+    capped_mask = capped & cfg.frag_mode & (extracted < lens)
+    mv_f = mv_n.to(torch.float64)
+    vt_thr = torch.where(capped_mask, int(cfg.max_nb_seeds * cfg.min_cnt),
+                         (mv_f * cfg.min_cnt).to(I64))
+    vt_thr = torch.clamp(vt_thr, min=1)
+    vt_rec = torch.where(capped_mask, int(cfg.max_nb_seeds * cfg.rec_frac),
+                         (mv_f * cfg.rec_frac).to(I64))
+    barrier = torch.full((B, 1), U64_MAX, dtype=I64, device=dev)
+    bq = torch.zeros((B, 1), dtype=I32, device=dev)
+    bok = torch.zeros((B, 1), dtype=torch.bool, device=dev)
+    A = cfg.A
+    vt = vote_scan(
+        torch.cat([fk, barrier, rk, barrier], 1), torch.cat([fq, bq, rq, bq], 1),
+        torch.cat([fok, bok, rok, bok], 1), [0] * (A + 1) + [1] * (A + 1),
+        bw, vt_thr.to(I32), vt_rec.to(I32), K)
+    _mark("vote")
+    if upto == "vote":
+        return vt
+
+    # ---- phase 5: candidates (top-K + recovery substitution) ----
+    use_rec = ((vt["out_len"] == 0) & (vt["r_score"] > 0))[:, None]
+    slot = torch.arange(K, dtype=I32, device=dev)[None, :]
+    c_valid = torch.where(use_rec, slot == 0, slot < vt["out_len"][:, None])
+    c_tgt = torch.where(use_rec, vt["r_target"][:, None], vt["k_target"])
+    c_str = torch.where(use_rec, vt["r_str"][:, None], vt["k_str"])
+    c_score = torch.where(use_rec, vt["r_score"][:, None], vt["k_score"])
+    off = torch.where(c_str != 0, 0, -extracted[:, None])
+    loc = _to_i32((c_tgt & U32) + off)
+    loc = torch.where(c_str != 0, loc - (k - 1), loc)
+
+    # ---- phase 6: window geometry (map.c:764-840) ----
+    ref_lengths = tables["ref_lengths"]
+    chrom = srl(c_tgt, 32)
+    chrom_c = torch.clamp(chrom, 0, max(ref_lengths.shape[0] - 1, 0))
+    tlen = ref_lengths[chrom_c]
+    qlen = lens[:, None]
+    so_r = torch.clamp(loc - (tlen - 1), min=0)
+    te_r = torch.minimum(loc, tlen - 1)
+    cond_r = te_r < qlen - so_r - 1
+    eo_r = torch.where(cond_r, so_r + te_r, qlen - 1)
+    ts_r = torch.where(cond_r, 0, te_r - (eo_r - so_r))
+    so_f = torch.clamp(-loc, min=0)
+    ts_f = torch.clamp(loc, min=0)
+    cond_f = (tlen - ts_f) < (qlen - so_f)
+    eo_f = torch.where(cond_f, tlen - 1 - ts_f + so_f, qlen - 1)
+    te_f = torch.where(cond_f, tlen - 1, ts_f + (eo_f - so_f))
+    rev = c_str != 0
+    so = torch.where(rev, so_r, so_f)
+    eo = torch.where(rev, eo_r, eo_f)
+    ts = torch.where(rev, ts_r, ts_f)
+    te = torch.where(rev, te_r, te_f)
+    length = eo - so + 1
+    bad = (length <= 0) | (length > cfg.Lmax) | (ts < 0)
+    fallback = fallback | (c_valid & bad).any(1)
+    live = c_valid & ~bad
+
+    # ---- phase 7: window gathers (plain, clamped; masked below) ----
+    L = cfg.Lmax
+    j = torch.arange(L, dtype=I64, device=dev)
+    in_win = j[None, None, :] < length[:, :, None]
+    keep = in_win & live[:, :, None]
+    s0 = torch.where(rev, eo - (L - 1), so)
+    fstart_q = torch.arange(B, dtype=I64, device=dev)[:, None] * L + s0
+    qidx = torch.clamp(fstart_q[:, :, None] + j, 0, B * L - 1)
+    qraw = codes.reshape(-1)[qidx].to(I32)
+    qg = torch.where(rev[:, :, None], torch.flip(qraw, [2]) ^ 3, qraw)
+    qbuf = torch.where(keep, qg, 0).to(torch.uint8)
+    fstart_t = tables["ref_offsets"][chrom_c] + ts
+    packed, nmask = tables["ref_codes"], tables["ref_nmask"]
+    tg = window_rows_packed(packed, nmask, fstart_t.reshape(-1), L).reshape(B, K, L)
+    tbuf = torch.where(keep, tg, 0)
+
+    # ---- phase 8: exact match, substitution-only, DP-row compaction ----
+    exact = (qlen < 300) & live & (qbuf == tbuf).all(2)
+    m_safe = _max_safe_subs(cfg.params)
+    mism = ((qbuf != tbuf) & in_win).sum(2, dtype=I32)
+    nfree = ~(((qbuf > 3) | (tbuf > 3)) & in_win).any(2)
+    sub_only = live & ~exact & nfree & (mism <= m_safe) & ((eo - so) == (te - ts))
+    N = B * K
+    need = (live & ~exact & ~sub_only).reshape(N)
+    N2 = dp_rows(N, cfg.dp_frac)
+    bandN = bw[:, None].expand(B, K).reshape(N).to(I32)
+    dp_lens = torch.where(exact | ~live, 0, length).to(I32).reshape(N)
+    perm = torch.sort((~need).to(I32), stable=True).indices
+    rank = torch.empty_like(perm).scatter_(0, perm, torch.arange(N, device=dev))
+    overflow = need & (rank >= N2)
+    fallback = fallback | overflow.reshape(B, K).any(1)
+    sel = perm[:N2]
+    qb2 = qbuf.reshape(N, L)[sel].contiguous()
+    tb2 = tbuf.reshape(N, L)[sel].contiguous()
+    len2 = dp_lens[sel].contiguous()
+    band2 = bandN[sel].contiguous()
+    _mark("windows")
+
+    score2, dirs, _, _ = extd2.extd2_batch(qb2, tb2, len2, band2, cfg.params, L)
+    _mark("dp")
+    rank_c = torch.clamp(rank, 0, N2 - 1)
+    score = torch.where(need, score2[rank_c], 0).reshape(B, K)
+    a_, b_ = cfg.params[0], cfg.params[1]
+    score = torch.where(sub_only, (a_ * (length - mism) - b_ * mism).to(I32), score)
+    score = torch.where(exact, (qlen * cfg.match_a).to(I32), score)
+
+    ops2, fin_i2, fin_j2 = backtrack_antidiag(dirs, len2, band2, L)
+    fin_i = torch.where(need, fin_i2[rank_c], 0)
+    fin_j = torch.where(need, fin_j2[rank_c], 0)
+    pad = (-ops2.shape[1]) % 4
+    if pad:
+        ops2 = torch.cat([ops2, torch.full((N2, pad), 255, dtype=torch.uint8,
+                                           device=dev)], 1)
+    ops_packed = pack_ops(ops2)
+
+    # opsrow: >=0 compacted op row; -2 all-M (sub_only); -1 no CIGAR
+    opsrow = torch.where(need & ~overflow, rank, -1).reshape(B, K)
+    opsrow = torch.where(sub_only, -2, opsrow)
+    meta = pack_outputs({
+        "shift": shift, "extracted": extracted, "fallback": fallback,
+        "c_valid": live, "c_score": c_score, "c_strand": c_str,
+        "chrom": chrom, "so": so, "ts": ts, "length": length,
+        "exact": exact, "dp_score": score, "fin_i": fin_i.reshape(B, K),
+        "fin_j": fin_j.reshape(B, K), "opsrow": opsrow,
+    })
+    _mark("backtrack")
+    return {"meta": meta, "ops": ops_packed}
+
+
+class TorchFusedMapper:
+    """Device tables + the fused step for one configuration
+    (device_step.py:1396-1517), on an explicit device."""
+
+    def __init__(self, index, mo, Lmax: int = 256, S: int = 160, S2: int = 64,
+                 A: int = 2048, dp_frac: float = 1.0, device=None):
+        self.device = torch.device(device if device is not None else index.device)
+        mid_occ = index.derive_mid_occ(mo)
+        dmax = _host.pattern.diet_length(Lmax, mo.pattern, 0)
+        cfg = StepConfig.from_options(index, mo, mid_occ, Lmax, min(S, dmax),
+                                      min(S2, dmax), A)
+        tkv, c1, c2, nb = index.device_cuckoo_kv()
+        self.cfg = dataclass_replace(cfg, dp_frac=dp_frac, cuckoo_c1=c1,
+                                     cuckoo_c2=c2, cuckoo_nb=nb)
+        maps, pref, _ = _pattern_tables(self.cfg)
+        packed, nmask = index.device_packed()
+        dev = self.device
+        self.tables = {  # .to() is a no-op where the index already lives
+            "cuckoo": tkv.to(dev),
+            "positions": index.device_positions().to(dev),
+            "ref_codes": packed.to(dev),
+            "ref_nmask": None if nmask is None else nmask.to(dev),
+            "ref_offsets": torch.from_numpy(np.asarray(index.seq_offsets, np.int64)).to(dev),
+            "ref_lengths": torch.from_numpy(np.asarray(index.lengths, np.int64)).to(dev),
+            "maps": torch.from_numpy(maps).to(dev),
+            "pref": torch.from_numpy(pref).to(dev),
+        }
+
+    def __call__(self, codes: np.ndarray, lens: np.ndarray, mark=None) -> dict:
+        """Dispatch one batch (host numpy in); returns device tensors."""
+        c = torch.from_numpy(np.ascontiguousarray(codes, np.uint8)).to(self.device)
+        ln = torch.from_numpy(np.ascontiguousarray(lens, np.int64)).to(self.device)
+        return fused_map_step(c, ln, self.tables, self.cfg, mark=mark)
+
+    def fetch(self, dev: dict, B: int):
+        """Device outputs -> (meta [B, 3+12K] i32, ops [N2, OB] u8) numpy."""
+        return dev["meta"][:B].cpu().numpy(), dev["ops"].cpu().numpy()

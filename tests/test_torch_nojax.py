@@ -1,0 +1,46 @@
+"""The port's route imports no JAX: the golden mapping runs in a
+subprocess with ``sys.modules["jax"] = None`` set before anything else, so
+any ``import jax`` on the path would fail. The host modules of gdiet_tpu
+are then reached through bare parent packages (``gdiet_tpu_torch._host``).
+"""
+
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+SCRIPT = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+import runpy
+sys.argv = ["gdiet_tpu_torch"] + sys.argv[1:]
+try:
+    runpy.run_module("gdiet_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    if e.code not in (0, None):
+        raise
+from gdiet_tpu_torch import _host
+assert _host.MODE == "bare", _host.MODE
+assert sys.modules["jax"] is None and sys.modules["jaxlib"] is None
+assert not hasattr(sys.modules["gdiet_tpu"], "__file__")
+print("NOJAX_OK")
+"""
+
+
+def test_cli_golden_without_jax(data_dir, tmp_path):
+    out = tmp_path / "out.sam"
+    args = ["--device", "cpu", "-a", "-t", "1", "-x", "sr", "-Z", "10",
+            "-W", "2", "-k", "21", "-w", "11", "-i", "2", "-N", "1",
+            "-r", "0.05,150,200", "-n", "0.95,0.3", "-s", "100",
+            "--AF_max_loc", "2", "-v", "1", "-o", str(out),
+            str(data_dir / "ref.fa"), str(data_dir / "reads.fq")]
+    res = subprocess.run([sys.executable, "-c", SCRIPT, *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "NOJAX_OK" in res.stdout
+    mine = [l for l in out.read_text().splitlines() if not l.startswith("@")]
+    gold = [l for l in (data_dir / "golden.sam").read_text().splitlines()
+            if not l.startswith("@")]
+    assert mine == gold
