@@ -56,25 +56,26 @@ else:
 from gdiet_tpu import config, debug, native, pattern  # noqa: E402
 from gdiet_tpu.index import cuckoo  # noqa: E402
 from gdiet_tpu.io import fastx, sam  # noqa: E402
-from gdiet_tpu.oracle import align, pipeline as oracle_pipeline, sketch as oracle_sketch  # noqa: E402
+from gdiet_tpu.oracle import align, hit as oracle_hit, pipeline as oracle_pipeline, sketch as oracle_sketch  # noqa: E402
 from gdiet_tpu.utils import profile  # noqa: E402
 
 __version__ = sys.modules["gdiet_tpu"].__version__
 
 
 def require_native():
-    """The native C runtime, or an error: without it the SR finish would
-    silently switch to the slow Python regs path."""
+    """The native C runtime, or an error: without it the SR and PE
+    finishes would silently switch to the slow Python regs path."""
     if native.lib is None:
         raise RuntimeError(
             "gdiet_tpu native library unavailable (no C compiler?): the port "
-            "needs native.sr_finish_batch for the short-read finish"
+            "needs native.sr_finish_batch / pe_finish_batch for the short-read "
+            "finish"
         )
     return native
 
 
 __all__ = [
     "MODE", "__version__", "align", "config", "cuckoo", "debug", "fastx",
-    "native", "oracle_pipeline", "oracle_sketch", "pattern", "profile",
-    "require_native", "sam",
+    "native", "oracle_hit", "oracle_pipeline", "oracle_sketch", "pattern",
+    "profile", "require_native", "sam",
 ]

@@ -3,6 +3,10 @@
   python -m gdiet_tpu_torch -a -x sr -Z 10 -W 2 -k 21 -w 11 -i 2 -N 1 \
       -r 0.05,150,200 -n 0.95,0.3 -s 100 --AF_max_loc 2 ref.fa reads.fq
 
+Two query files (``r1.fq r2.fq``) map as pairs. ``GDIET_DP_FOLD=1`` runs
+the DP through the folded kernel where the banded lane window cannot
+engage, as in ``gdiet_tpu``.
+
 Options keep the letters and syntax of ``gdiet_tpu.cli`` (the reference's
 main.c), whose tokenizer is reused; this parser handles the short-read
 subset. ``--device`` (default ``cuda``) picks the torch device; without a
@@ -16,11 +20,13 @@ import sys
 
 from gdiet_tpu_torch import _host
 
-HELP = """Usage: python -m gdiet_tpu_torch [options] <target.fa>|<target.gdi.npz> <query.fq>
-Short-read (-x sr) mapping to SAM on a GPU with PyTorch/CUDA. Options:
+HELP = """Usage: python -m gdiet_tpu_torch [options] <target.fa>|<target.gdi.npz> <query.fq> [<query2.fq>]
+Short-read (-x sr) mapping to SAM on a GPU with PyTorch/CUDA; two query
+files map as pairs. Options:
   -x sr      preset (short-read presets only)
   -Z STR/-W INT  sparsification pattern / its length
-  -i FLOAT   max seeds for pattern-shift inference (>= 1)
+  -i FLOAT   max seeds for pattern-shift inference (a count if >= 1,
+             a fraction of the read length if < 1)
   -k/-w INT  k-mer size / minimizer window
   -a         SAM output (required)      -o FILE  output [stdout]
   -d FILE    dump the index (npz)       -t INT   host threads for the oracle

@@ -49,8 +49,22 @@ def cigars_from_ops(ops, fin_i, fin_j, lens) -> list:
     return cigars
 
 
+def round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
 def round16(x: int) -> int:
-    return (x + 15) // 16 * 16
+    return round_up(x, 16)
+
+
+def boundary_u(r: int, qe: int, e: int, e2: int, long_thres: int,
+               long_diff: int) -> int:
+    """Boundary u value at wavefront r (ksw2_extd2_sse.c:149-163)."""
+    if r == 0:
+        return -qe
+    if r < long_thres:
+        return -e
+    return long_diff if r == long_thres else -e2
 
 
 def derive_scoring(params) -> tuple:
@@ -143,14 +157,7 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
         prev_ok = (st > 0) & (st - 1 >= last_st) & (st - 1 <= last_en)
         x1 = torch.where(prev_ok, take(x, stm1), -(q + e))
         x21 = torch.where(prev_ok, take(x2, stm1), -(q2 + e2))
-        if r == 0:
-            bu = -(q + e)
-        elif r < long_thres:
-            bu = -e
-        elif r == long_thres:
-            bu = long_diff
-        else:
-            bu = -e2
+        bu = boundary_u(r, q + e, e, e2, long_thres, long_diff)
         v1 = torch.where(st > 0, torch.where(prev_ok, take(v, stm1), -(q + e)), bu)
 
         # edge-lane init at t == r (ksw2_extd2_sse.c:160-163)

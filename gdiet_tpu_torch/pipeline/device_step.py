@@ -1,24 +1,31 @@
 """The fused short-read mapping step, in torch.
 
 Port of ``gdiet_tpu/pipeline/device_step.py`` (see its docstring for the
-stages of mm_map_frag, GDiet-ShortReads/map.c:586-1010): merged shift
-inference + query sketch, cuckoo seed lookup, mm_seed_select, query-occ
-check, hit expansion and per-strand sort, run vote, window geometry and
-gathers, exact/substitution-only shortcuts, DP-row compaction, banded DP
-(``ops/extd2.py``: the CUDA kernel on the card, the plain version on the
-CPU), antidiagonal backtrack and output packing. The outputs — meta
-[B, 3+12K] int32 and 2-bit packed ops — are byte-identical to
-``fused_map_step``'s, so ``native.sr_finish_batch`` consumes them unchanged.
+stages of mm_map_frag, GDiet-ShortReads/map.c:586-1010): shift inference
++ query sketch (merged for an absolute ``-i``, in two phases for a
+fractional one), cuckoo seed lookup, mm_seed_select, query-occ check, hit
+expansion and per-strand sort, run vote, window geometry and gathers,
+exact/substitution-only shortcuts, DP-row compaction, banded DP
+(``ops/extd2.py``: the CUDA kernels on the card, the plain versions on the
+CPU; folded when ``StepConfig.dp_fold``), antidiagonal backtrack and output
+packing. The outputs — meta [B, 3+12K] int32 and 2-bit packed ops — are
+byte-identical to ``fused_map_step``'s, so ``native.sr_finish_batch`` and
+``native.pe_finish_batch`` consume them unchanged.
+
+``TorchFusedMapper(dp_fold=True)`` (``GDIET_DP_FOLD=1`` at the entry
+point, ``runtime.py``) folds the DP where the banded lane window cannot
+engage, the JAX step's condition, resolved once per mapper.
+Unlike the JAX step, which never folds off the TPU, the port folds on the
+CPU too, through the plain fold version.
 
 uint64 values are int64 bit patterns (``gdiet_tpu_torch/u64.py``). TPU
 gather workarounds (one-hot matmul selects, chunk-row window gathers) are
 plain gathers here, with indices clamped explicitly where JAX clamps
 silently. The vote scan and the backtrack are plain torch loops.
 
-Not ported yet (ROADMAP): the fractional ``-i`` branch, the sharded
-``ref_axis`` path, the bisect probe, the folded DP and the banded lane
-window, ``fuse_out_device`` (a TPU-link transfer trick) and the five-stage
-re-run profiler.
+Not ported yet (ROADMAP): the sharded ``ref_axis`` path, the bisect probe,
+the banded lane window, ``fuse_out_device`` (a TPU-link transfer trick) and
+the five-stage re-run profiler.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch
 from gdiet_tpu_torch import _host, u64
 from gdiet_tpu_torch.ops import extd2
 from gdiet_tpu_torch.ops.dp import CIGAR_DEL, CIGAR_INS, CIGAR_MATCH
+from gdiet_tpu_torch.ops.dp_fold import FOLD_GAP, fold_geometry, window_geometry
 from gdiet_tpu_torch.ops.sketch import sketch_emit
 from gdiet_tpu_torch.u64 import ORD_MAX, U32, U64_MAX, srl
 
@@ -70,6 +78,7 @@ class StepConfig:
     cuckoo_c2: int = 0
     cuckoo_nb: int = 0
     dp_frac: float = 1.0
+    dp_fold: bool = False  # folded DP layout (TorchFusedMapper resolves it)
 
     @classmethod
     def from_options(cls, mi, mo, mid_occ: int, Lmax: int, S: int, S2: int,
@@ -234,14 +243,12 @@ def _expand_hits(starts, counts, qpos, qstrand, positions, extracted, A: int):
 
 
 def collect_hits(codes, lens, tables: dict, cfg: StepConfig):
-    """Device front of mm_map_frag (phases 1-3, device_step.py:771-1043),
-    merged shift/sketch branch (absolute ``-i``).
+    """Device front of mm_map_frag (phases 1-3, device_step.py:771-1043):
+    the merged shift/sketch branch for an absolute ``-i``, shift inference
+    then the query sketch for a fractional one.
 
     Returns (fallback, shift, extracted, mv_n, capped, fk, fq, fok, rk, rq,
     rok)."""
-    if cfg.frac_mode:
-        raise NotImplementedError(
-            "fractional -i (< 1) is not ported yet: see ROADMAP.md Queue 1")
     B = codes.shape[0]
     dev = codes.device
     W = len(cfg.pattern)
@@ -252,40 +259,71 @@ def collect_hits(codes, lens, tables: dict, cfg: StepConfig):
     Dmax = maps.shape[1]
     fallback = torch.zeros((B,), dtype=torch.bool, device=dev)
 
-    # ---- phases 1+2 merged: sketch each shift once at the full budget,
-    # probe only the first -i seeds' counts for the shift argmax ----
-    cap_int = int(cfg.max_seeds)
-    unlimited = cap_int == 0  # a cap of 0 means "no cap" (sketch.c push loop)
-    cap_cols = cfg.S if cap_int <= 0 else min(cfg.S, cap_int)
-    per_shift, effs = [], []
-    for s in range(W):
-        dlen = _diet_len(lens, s, pref, W)
-        dc = codes[:, maps[s]]
-        xs_s, ys_s, _, n_s = sketch_emit(
-            dc, dlen, maps[s].expand(B, Dmax), rid0, k, w, cfg.S,
-            final_flush_ge=True)
-        eff = n_s if unlimited else torch.clamp(n_s, max=cap_int)
-        if unlimited or cap_int > cfg.S:
-            fallback = fallback | (n_s >= cfg.S)
-        effs.append(eff)
-        per_shift.append((xs_s, ys_s, n_s))
-    qcat = srl(torch.cat([t[0][:, :cap_cols] for t in per_shift], dim=1), 8)
-    _, cnt_cat = cuckoo_lookup(qcat, table, cfg)
-    col = torch.arange(cap_cols, dtype=I64, device=dev)[None, :]
-    nb_hits = torch.stack([
-        (cnt_cat[:, s * cap_cols:(s + 1) * cap_cols] * (col < effs[s][:, None])).sum(1)
-        for s in range(W)])
-    shift = torch.argmax(nb_hits, dim=0)  # first maximal index on ties
+    def sketch_shift(s: int, dlen, cap: int):
+        return sketch_emit(codes[:, maps[s]], dlen, maps[s].expand(B, Dmax), rid0,
+                           k, w, cap, final_flush_ge=True)
 
-    def _sel(field):
-        out = per_shift[0][field]
-        for s in range(1, W):
-            c = shift == s
-            out = torch.where(c[:, None] if out.dim() == 2 else c,
-                              per_shift[s][field], out)
-        return out
+    if not cfg.frac_mode:
+        # ---- phases 1+2 merged: sketch each shift once at the full
+        # budget, probe only the first -i seeds' counts for the shift
+        # argmax ----
+        cap_int = int(cfg.max_seeds)
+        unlimited = cap_int == 0  # a cap of 0 means "no cap" (sketch.c push loop)
+        cap_cols = cfg.S if cap_int <= 0 else min(cfg.S, cap_int)
+        per_shift, effs = [], []
+        for s in range(W):
+            xs_s, ys_s, _, n_s = sketch_shift(s, _diet_len(lens, s, pref, W), cfg.S)
+            eff = n_s if unlimited else torch.clamp(n_s, max=cap_int)
+            if unlimited or cap_int > cfg.S:
+                fallback = fallback | (n_s >= cfg.S)
+            effs.append(eff)
+            per_shift.append((xs_s, ys_s, n_s))
+        qcat = srl(torch.cat([t[0][:, :cap_cols] for t in per_shift], dim=1), 8)
+        _, cnt_cat = cuckoo_lookup(qcat, table, cfg)
+        col = torch.arange(cap_cols, dtype=I64, device=dev)[None, :]
+        nb_hits = torch.stack([
+            (cnt_cat[:, s * cap_cols:(s + 1) * cap_cols] * (col < effs[s][:, None])).sum(1)
+            for s in range(W)])
+        shift = torch.argmax(nb_hits, dim=0)  # first maximal index on ties
 
-    xs, ys, n3 = _sel(0), _sel(1), _sel(2)
+        def _sel(field):
+            out = per_shift[0][field]
+            for s in range(1, W):
+                c = shift == s
+                out = torch.where(c[:, None] if out.dim() == 2 else c,
+                                  per_shift[s][field], out)
+            return out
+
+        xs, ys, n3 = _sel(0), _sel(1), _sel(2)
+    else:
+        # ---- phase 1: shift inference (mm_sketch2 + mm_get_shift) on the
+        # cropped shift-0 scan, whose seed count caps the other shifts ----
+        len_crop0 = (lens.to(torch.float64) * cfg.max_seeds).to(I64)
+        col = torch.arange(cfg.S2, dtype=I64, device=dev)[None, :]
+        nb_hits = []
+        cap_vec = None
+        for s in range(W):
+            xs_s, _, _, n = sketch_shift(
+                s, _diet_len(len_crop0 if s == 0 else lens, s, pref, W), cfg.S2)
+            if s == 0:
+                cap_vec = eff = n  # sketch.c:2219-2222
+                over = n >= cfg.S2
+            else:
+                # the push loop stops only when the count EQUALS the cap,
+                # so a cap of 0 never fires and means "no cap"
+                unlimited = cap_vec == 0
+                eff = torch.where(unlimited, n, torch.minimum(n, cap_vec))
+                over = (n >= cfg.S2) & (unlimited | (cap_vec > cfg.S2))
+            fallback = fallback | over
+            _, cnts = cuckoo_lookup(srl(xs_s, 8), table, cfg)
+            nb_hits.append((cnts * (col < eff[:, None])).sum(1))
+        shift = torch.argmax(torch.stack(nb_hits), dim=0)
+
+        # ---- phase 2: query sketch (mm_sketch3) at the chosen shift ----
+        rp3 = maps[shift]
+        xs, ys, _, n3 = sketch_emit(
+            torch.gather(codes, 1, rp3), _diet_len(lens, shift, pref, W), rp3,
+            rid0, k, w, cfg.S, final_flush_ge=True)
     if cfg.S < cfg.max_nb_seeds:
         fallback = fallback | (n3 > cfg.S)
 
@@ -415,34 +453,59 @@ def window_rows_packed(packed, nmask, fstart, L: int):
     return out.to(torch.uint8)
 
 
-def backtrack_antidiag(dirs, dp_lens, band, Lmax: int):
-    """Antidiagonal-synchronous ksw_backtrack (ksw2.h:131-163) over the
-    dirs layout of ops/dp.py (device_step.py:452-585 with fold=False and
-    no lane window). Ops stream back to front, one column per antidiagonal
-    r = Rpad-1 .. 0 (R padded to a multiple of 8), 255 on idle columns.
+def backtrack_antidiag(dirs, dp_lens, band, Lmax: int, tlens=None,
+                       Lt: int | None = None, fold: bool = False):
+    """Antidiagonal-synchronous ksw_backtrack (ksw2.h:131-163), as
+    device_step.py:452-585 without the lane window. Ops stream back to
+    front, one column per antidiagonal r = Rpad-1 .. 0 (R padded to a
+    multiple of 8), 255 on idle columns.
+
+    ``fold=False`` reads the dirs layout of ops/dp.py, [N, R, Wd].
+    ``fold=True`` reads the raw folded layout of ops/dp_fold.py,
+    [(C+1)*H, Nrows, Wd]: candidate n = c*Nrows + k takes wavefront r from
+    slice c*H + r, at lane i + FOLD_GAP for the second half (r >= H).
     Returns (ops [N, Rpad] u8, fin_i [N] i32, fin_j [N] i32)."""
-    N, R, Wd = dirs.shape
     dev = dirs.device
-    T = -(-Lmax // 128) * 128
+    N = dp_lens.shape[0]
+    if Lt is None:
+        Lt = Lmax
+    if fold:
+        H, Wd, T = fold_geometry(Lmax, Lt)
+        Nrows = dirs.shape[1]
+        R = 2 * H
+        n = torch.arange(N, dtype=I64, device=dev)
+        base = ((n // Nrows) * H * Nrows + n % Nrows) * Wd
+        flat = dirs.reshape(-1)
+
+        def dir_bytes(r, i):
+            col = torch.clamp(i + (FOLD_GAP if r >= H else 0), 0, Wd - 1).to(I64)
+            return flat[base + r * Nrows * Wd + col]
+    else:
+        _, R, Wd = dirs.shape
+        T = -(-Lt // 128) * 128
+
+        def dir_bytes(r, i):
+            col = torch.clamp(i, 0, Wd - 1).to(I64)
+            return torch.gather(dirs[:, r, :], 1, col[:, None])[:, 0]
     BT_U = 8
     Rpad = -(-R // BT_U) * BT_U
     lens = dp_lens.to(I32)
+    tl = lens if tlens is None else tlens.to(I32)
     w = band.to(I32)
-    i = lens - 1
+    i = tl - 1
     j = lens - 1
     state = torch.zeros((N,), dtype=I32, device=dev)
-    active = lens > 0
+    active = (lens > 0) & (tl > 0)
     ops = torch.full((N, Rpad), 255, dtype=torch.uint8, device=dev)
     for r in range(R - 1, -1, -1):
         act = active & (i + j == r)
         st0 = torch.maximum(torch.clamp(r - lens + 1, min=0), (r - w + 1) >> 1)
-        en0 = torch.minimum(torch.clamp(lens - 1, max=r), (r + w) >> 1)
-        live = (st0 <= en0) & (r < lens + lens - 1) & (lens > 0)
+        en0 = torch.minimum(torch.clamp(tl - 1, max=r), (r + w) >> 1)
+        live = (st0 <= en0) & (r < lens + tl - 1) & (lens > 0)
         off_r = torch.where(live, st0 // 16 * 16, T)
         off_end_r = torch.where(live, torch.clamp((en0 + 16) // 16 * 16 - 1, max=T - 1), -1)
         force = torch.where(i > off_end_r, 1, torch.where(i < off_r, 2, -1))
-        col = torch.clamp(i, 0, Wd - 1).to(I64)
-        tmp = torch.gather(dirs[:, r, :], 1, col[:, None])[:, 0].to(I32)
+        tmp = dir_bytes(r, i).to(I32)
         tmp = torch.where(force >= 0, 0, tmp)
         nstate = torch.where(state == 0, tmp & 7,
                              torch.where(((tmp >> (state + 2)) & 1) != 0, state, 0))
@@ -625,7 +688,8 @@ def fused_map_step(codes, lens, tables: dict, cfg: StepConfig,
     band2 = bandN[sel].contiguous()
     _mark("windows")
 
-    score2, dirs, _, _ = extd2.extd2_batch(qb2, tb2, len2, band2, cfg.params, L)
+    score2, dirs, _, _ = extd2.extd2_batch(qb2, tb2, len2, band2, cfg.params, L,
+                                           fold=cfg.dp_fold)
     _mark("dp")
     rank_c = torch.clamp(rank, 0, N2 - 1)
     score = torch.where(need, score2[rank_c], 0).reshape(B, K)
@@ -633,7 +697,7 @@ def fused_map_step(codes, lens, tables: dict, cfg: StepConfig,
     score = torch.where(sub_only, (a_ * (length - mism) - b_ * mism).to(I32), score)
     score = torch.where(exact, (qlen * cfg.match_a).to(I32), score)
 
-    ops2, fin_i2, fin_j2 = backtrack_antidiag(dirs, len2, band2, L)
+    ops2, fin_i2, fin_j2 = backtrack_antidiag(dirs, len2, band2, L, fold=cfg.dp_fold)
     fin_i = torch.where(need, fin_i2[rank_c], 0)
     fin_j = torch.where(need, fin_j2[rank_c], 0)
     pad = (-ops2.shape[1]) % 4
@@ -661,15 +725,19 @@ class TorchFusedMapper:
     (device_step.py:1396-1517), on an explicit device."""
 
     def __init__(self, index, mo, Lmax: int = 256, S: int = 160, S2: int = 64,
-                 A: int = 2048, dp_frac: float = 1.0, device=None):
+                 A: int = 2048, dp_frac: float = 1.0, device=None,
+                 dp_fold: bool = False):
         self.device = torch.device(device if device is not None else index.device)
         mid_occ = index.derive_mid_occ(mo)
         dmax = _host.pattern.diet_length(Lmax, mo.pattern, 0)
         cfg = StepConfig.from_options(index, mo, mid_occ, Lmax, min(S, dmax),
                                       min(S2, dmax), A)
         tkv, c1, c2, nb = index.device_cuckoo_kv()
+        # dp_fold folds the DP where the banded lane window cannot engage
+        # (device_step.py:1325-1328); resolved once per mapper
+        fold = dp_fold and window_geometry(cfg.bw_max, -(-Lmax // 128) * 128) is None
         self.cfg = dataclass_replace(cfg, dp_frac=dp_frac, cuckoo_c1=c1,
-                                     cuckoo_c2=c2, cuckoo_nb=nb)
+                                     cuckoo_c2=c2, cuckoo_nb=nb, dp_fold=fold)
         maps, pref, _ = _pattern_tables(self.cfg)
         packed, nmask = index.device_packed()
         dev = self.device

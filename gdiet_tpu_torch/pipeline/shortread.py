@@ -2,14 +2,15 @@
 host finish, with a wider retry tier and the scalar-oracle fallback.
 
 Port of ``gdiet_tpu/pipeline/shortread.py::ShortReadMapper`` (single-end
-SR; see that module for the design). Reads outside the fixed-shape envelope
-(length > 300, budget overflows, occurrence streaks, an active query-occ
-filter, window geometry outside the budget) are re-mapped by the
-wider-budget retry tier and then, if still outside, by the scalar oracle,
-so the SAM is identical to the reference's.
+and paired-end SR; see that module for the design). Single-end reads
+outside the fixed-shape envelope (length > 300, budget overflows,
+occurrence streaks, an active query-occ filter, window geometry outside the
+budget) are re-mapped by the wider-budget retry tier and then, if still
+outside, by the scalar oracle, so the SAM is identical to the reference's.
+Paired-end pairs outside it take the oracle directly, as in ``gdiet_tpu``.
 
-Not ported yet: paired-end, the multi-device mesh and the five-stage
-profile re-run (``NotImplementedError``).
+Not ported yet: the multi-device mesh and the five-stage profile re-run
+(``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ class ShortReadMapper:
                  hit_budget: int = 2048, dp_frac: float = 0.5, mesh=None,
                  retry_hit_budget: int = 2048, retry_batch: int = 512,
                  n_threads: int = 1, profile_stages: bool = False,
-                 device=None):
+                 device=None, dp_fold: bool = False):
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device mapping is not ported yet: see ROADMAP.md")
@@ -53,7 +54,7 @@ class ShortReadMapper:
         self.Lmax = max_read_len
         self.fused = TorchFusedMapper(
             index, mo, Lmax=max_read_len, S=seed_budget, S2=shift_seed_budget,
-            A=hit_budget, dp_frac=dp_frac, device=self.device)
+            A=hit_budget, dp_frac=dp_frac, dp_fold=dp_fold, device=self.device)
         self._oracle_index = None
         self._retry_args = (seed_budget, shift_seed_budget, retry_hit_budget)
         self.retry_batch = retry_batch
@@ -84,7 +85,8 @@ class ShortReadMapper:
         if self._retry_fused is None:
             self._retry_fused = TorchFusedMapper(
                 self.mi, self.mo, Lmax=self.Lmax, S=min(4 * S, 256), S2=S2,
-                A=max(A2, cfg.A), dp_frac=1.0, device=self.device)
+                A=max(A2, cfg.A), dp_frac=1.0, dp_fold=cfg.dp_fold,
+                device=self.device)
         return self._retry_fused
 
     def _retry_batch_regs(self, reads_sub):
@@ -152,30 +154,21 @@ class ShortReadMapper:
                     [reads[i].qual or "" for i in device_idx])
         return reads, codes, lens, host_only, device_idx, dev, blobs
 
-    def map_stream_sam(self, batches, rep_len: int = 0):
-        """Pipelined mapping straight to SAM text: yields one ``bytes``-like
-        blob of newline-terminated records per batch, in read order
-        (shortread.py:290-356). A batch is a list of reads or a ``(reads,
-        n_real)`` tuple whose tail is padding. A producer thread encodes and
-        dispatches batch k+1 before fetching batch k, while this thread runs
-        the native finish. Accumulates ``self.stats``."""
-        self.stats = {"fallback_reads": 0, "n_records": 0}
+    def _pipelined(self, batches, prepare, fetch, finish):
+        """Yield ``finish(state, fetched)`` per batch, in order. A batch is
+        a list or a ``(items, n_real)`` tuple whose tail is padding. A
+        producer thread runs ``prepare(items, n_real)`` (encode + device
+        dispatch) for batch k+1 before ``fetch(state)`` of batch k, while
+        this thread runs the host finish."""
         q: queue.Queue = queue.Queue(maxsize=2)
-
-        def fetch(state):
-            dev, device_idx = state[5], state[4]
-            if dev is None:
-                return None
-            with PROFILE.stage(Stage.DEVICE_FUSED):
-                return self.fused.fetch(dev, len(device_idx))
 
         def producer():
             try:
                 prev = None
                 for batch in batches:
-                    batch, n_real = (batch if isinstance(batch, tuple)
+                    items, n_real = (batch if isinstance(batch, tuple)
                                      else (batch, len(batch)))
-                    state = (*self._prepare_and_dispatch(batch), n_real)
+                    state = prepare(items, n_real)
                     if prev is not None:
                         q.put((prev, fetch(prev)))
                     prev = state
@@ -194,13 +187,166 @@ class ShortReadMapper:
                 break
             if isinstance(item, BaseException):
                 raise item
-            state, fetched = item
-            yield self._finish_sam(state, rep_len, fetched)
+            yield finish(*item)
         t.join()
 
+    def map_stream_sam(self, batches, rep_len: int = 0):
+        """Pipelined mapping straight to SAM text: yields one ``bytes``-like
+        blob of newline-terminated records per batch of reads, in read
+        order (shortread.py:290-356). Accumulates ``self.stats``."""
+        self.stats = {"fallback_reads": 0, "n_records": 0}
+
+        def fetch(state):
+            dev, device_idx = state[5], state[4]
+            if dev is None:
+                return None
+            with PROFILE.stage(Stage.DEVICE_FUSED):
+                return self.fused.fetch(dev, len(device_idx))
+
+        return self._pipelined(
+            batches, lambda reads, n: (*self._prepare_and_dispatch(reads), n),
+            fetch, lambda state, fetched: self._finish_sam(state, rep_len, fetched))
+
+    # ------------------------------------------------------------------
+    # Paired-end (shortread.py:483-659): both ends map as ordinary fused-
+    # step rows (even rows R1, odd rows R2, pe_ori-revcomp'd); pairing and
+    # the mate-field SAM records run in one native call per batch
+    # (pe_finish_batch: mm_pair pe.c:76-177 + format.c:432-530). There is
+    # no retry tier: pairs outside the envelope take the oracle.
+    # ------------------------------------------------------------------
+    def _pe_gap(self) -> int:
+        """Pair gap bound: the reference never computes frag_gap; bound it
+        by the frag-mode fragment budget (map.c:621-622)."""
+        mo = self.mo
+        return (mo.max_gap_ref if mo.max_gap_ref >= 0
+                else max(mo.max_gap, mo.max_frag_len or 800))
+
+    def _pe_flips(self) -> tuple[int, int]:
+        pe_ori = self.mo.pe_ori
+        return (pe_ori >> 1) & 1, pe_ori & 1
+
     def map_stream_sam_pe(self, pair_batches, rep_len: int = 0):
-        raise NotImplementedError(
-            "paired-end mapping is not ported yet: see ROADMAP.md")
+        """Pipelined paired-end mapping straight to SAM text: yields one
+        blob per batch of read PAIRS, order preserved. A batch is a list of
+        (r1, r2) ORIGINAL records or a ``(pairs, n_real)`` tuple with a
+        padded tail. Pairs outside the envelope take the exact oracle and
+        the Python writer (identical output). Accumulates ``self.stats``."""
+        self.stats = {"fallback_reads": 0, "n_records": 0}
+
+        def fetch(state):
+            with PROFILE.stage(Stage.DEVICE_FUSED):
+                return self.fused.fetch(state[4], 2 * len(state[0]))
+
+        return self._pipelined(
+            pair_batches, self._prepare_pe, fetch,
+            lambda state, fetched: self._finish_pe(state, rep_len, fetched))
+
+    def _prepare_pe(self, pairs, n_real: int):
+        _t0 = time.perf_counter_ns()
+        f0, f1 = self._pe_flips()
+        revcomp = _host.sam.revcomp
+        mseqs: list = []
+        for r1, r2 in pairs:
+            mseqs.append(revcomp(r1.seq) if f0 else r1.seq)
+            mseqs.append(revcomp(r2.seq) if f1 else r2.seq)
+        codes, lens = self.native.encode_batch(mseqs, self.Lmax)
+        host_only_pair = (lens > min(300, self.Lmax)).reshape(-1, 2).any(axis=1)
+        dev = self.fused(codes, lens)
+        PROFILE.add(Stage.HOST_PREP, time.perf_counter_ns() - _t0)
+        with PROFILE.stage(Stage.HOST_BLOBS):
+            names: list = []
+            seqs: list = []
+            quals: list = []
+            for r1, r2 in pairs:
+                names += [r1.name, r2.name]
+                seqs += [r1.seq, r2.seq]
+                quals += [r1.qual or "", r2.qual or ""]
+            blobs = self.native.make_sr_blobs(names, seqs, quals)
+        return pairs, codes, lens, host_only_pair, dev, blobs, n_real
+
+    def _finish_pe(self, state, rep_len: int, fetched) -> bytes:
+        pairs, codes, lens, host_only, _, blobs, n_real = state
+        mo = self.mo
+        cfgm = _host.config
+        meta_np, ops_np = fetched
+        f0, f1 = self._pe_flips()
+        rn_blob, rn_offs = self._ref_names()
+        with PROFILE.stage(Stage.HOST_FINISH):
+            res = self.native.pe_finish_batch(
+                meta_np, ops_np, self.fused.cfg.K, self.fused.cfg.Lmax,
+                codes, lens, self.mi.codes, self.mi.seq_offsets, rn_blob, rn_offs,
+                mo.a, mo.b, mo.q, mo.e, mo.min_dp_max,
+                0 if (mo.flag & cfgm.MM_F_NO_PRINT_2ND) else mo.best_n,
+                bool(mo.flag & cfgm.MM_F_NO_PRINT_2ND),
+                bool(mo.flag & cfgm.MM_F_SOFTCLIP), rep_len,
+                bool(f0), bool(f1), self._pe_gap(), mo.pe_bonus, blobs=blobs)
+        if res is None:
+            raise RuntimeError("native pe_finish_batch failed")
+        buf, rec_offs, done = res
+        with PROFILE.stage(Stage.HOST_ASSEMBLE):
+            ro = rec_offs.tolist()
+            spans = [(ro[i], ro[i + 1]) if done[i] and not host_only[i] else None
+                     for i in range(n_real)]
+            view = memoryview(buf)
+            out = []
+            n_fb = 0
+            i = 0
+            while i < n_real:
+                if spans[i] is not None:
+                    s0, e0 = spans[i]
+                    while i + 1 < n_real and spans[i + 1] is not None \
+                            and spans[i + 1][0] == e0:
+                        i += 1
+                        e0 = spans[i][1]
+                    out.append(view[s0:e0])
+                else:
+                    n_fb += 1
+                    out.append(self._oracle_sam_pe(pairs[i], rep_len))
+                i += 1
+            self.stats["fallback_reads"] += n_fb
+            blob = b"".join(out)
+            self.stats["n_records"] += blob.count(b"\n")
+        return blob
+
+    def _oracle_sam_pe(self, pair, rep_len: int) -> bytes:
+        """Exact oracle PE finish for one pair: map both pe_ori-revcomp'd
+        ends, mm_pair, flip back, n_seg=2 records (shortread.py:612-659)."""
+        mo = self.mo
+        cfgm = _host.config
+        samio = _host.sam
+        flips = self._pe_flips()
+        recs = list(pair)
+        mapped = [
+            _host.fastx.SeqRecord(rec.name, samio.revcomp(rec.seq),
+                                  rec.qual[::-1] if rec.qual else None, rec.comment)
+            if flips[j] else rec
+            for j, rec in enumerate(recs)]
+        results = [_host.oracle_pipeline.map_read(
+            self._oracle_mi(), m.seq, mo, self.mid_occ, m.name) for m in mapped]
+        if mo.pe_ori >= 0 and (mo.flag & cfgm.MM_F_CIGAR):
+            _host.oracle_hit.pair(self._pe_gap(), mo.pe_bonus, mo.a * 2 + mo.b, mo.a,
+                                  [mapped[0].l_seq, mapped[1].l_seq], results)
+        for j in range(2):
+            if flips[j]:
+                qlen = mapped[j].l_seq
+                for r in results[j] or []:
+                    r.qs, r.qe = qlen - r.qe, qlen - r.qs
+                    r.rev = 0 if r.rev else 1
+        lines = []
+        for j, rec in enumerate(recs):
+            regs, mate = results[j], results[1 - j]
+            if regs:
+                for r in regs:
+                    if (mo.flag & cfgm.MM_F_NO_PRINT_2ND) and r.id != r.parent:
+                        continue
+                    lines.append(samio.sam_record(
+                        rec.name, rec.seq, rec.qual, r, regs, self.mi.names,
+                        mo.flag, rep_len, j, 2, mate, index=self.mi))
+            else:
+                lines.append(samio.sam_record(
+                    rec.name, rec.seq, rec.qual, None, [], self.mi.names,
+                    mo.flag, rep_len, j, 2, mate))
+        return ("\n".join(lines) + "\n").encode()
 
     def _oracle_sam(self, rec, rep_len: int) -> bytes:
         """Scalar-oracle mapping + Python SAM formatting for one read."""

@@ -1,15 +1,17 @@
 """File-level mapping driver of the port (the mm_map_file analog).
 
-Port of ``gdiet_tpu/runtime.py`` for the short-read SAM path
-(``_run_sr_sam_fast``): reads stream in fixed-shape batches through
+Port of ``gdiet_tpu/runtime.py`` for the short-read SAM paths: single-end
+(``_run_sr_sam_fast``) streams reads in fixed-shape batches through
 ``ShortReadMapper.map_stream_sam`` with one-batch lookahead, budgets scaled
 to the observed read length, and an adaptive re-tier to a wider Lmax when
-long reads keep arriving. Other variants and outputs raise
-``NotImplementedError``.
+long reads keep arriving; paired-end (``_run_sr_pe_sam_fast``) streams
+pairs from two FASTQs through ``map_stream_sam_pe``. Other variants and
+outputs raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import os
 import resource
 import sys
 import time
@@ -44,25 +46,45 @@ def load_or_build_index(target: str, io, device, verbose: int = 3,
     return mi
 
 
+def _open_sam(out_path: str | None, mi, cli_line: str):
+    """The SAM output stream with its header written."""
+    bout = (open(out_path, "wb") if out_path and out_path != "-"
+            else sys.stdout.buffer)
+    bout.write(_host.sam.sam_header(mi.names, [int(x) for x in mi.lengths],
+                                    cli_line, __version__).encode())
+    return bout
+
+
+def _close_and_report(bout, n_mapped: int, verbose: int, cli_line: str,
+                      t0: float) -> None:
+    if bout is not sys.stdout.buffer:
+        bout.close()
+    _log(verbose, t0, f"mapped {n_mapped} sequences")
+    if verbose >= 3:
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+        print(f"[M::gdiet] Version: {__version__}", file=sys.stderr)
+        print(f"[M::gdiet] CMD: {cli_line}", file=sys.stderr)
+        print(f"[M::gdiet] Real time: {time.perf_counter() - t0:.3f} sec; "
+              f"CPU: {time.process_time():.3f} sec; Peak RSS: {rss:.3f} GB",
+              file=sys.stderr)
+        PROFILE.report(sys.stderr)
+
+
 def run_sr_sam(mi, mo, query: str, out_path: str | None, n_threads: int,
                verbose: int, cli_line: str, t0: float, device,
-               batch_reads: int = 8192) -> int:
+               batch_reads: int = 8192, dp_fold: bool = False) -> int:
     """SR + SAM path (gdiet_tpu/runtime.py:192-335): fixed batch shape,
     tail batch padded, Lmax from the first batch, re-tier after enough
-    length-overflow reads."""
+    length-overflow reads. ``dp_fold``: ``TorchFusedMapper``'s."""
     from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
 
-    samio = _host.sam
     rdr = _host.fastx.read_fastx(query)
     first = []
     for rec in rdr:
         first.append(rec)
         if len(first) >= batch_reads:
             break
-    bout = (open(out_path, "wb") if out_path and out_path != "-"
-            else sys.stdout.buffer)
-    bout.write(samio.sam_header(mi.names, [int(x) for x in mi.lengths],
-                                cli_line, __version__).encode())
+    bout = _open_sam(out_path, mi, cli_line)
     n_mapped = 0
     if first:
         B = 1
@@ -79,7 +101,8 @@ def run_sr_sam(mi, mo, query: str, out_path: str | None, n_threads: int,
             return ShortReadMapper(
                 mi, mo, max_read_len=lmax, seed_budget=32 * scale,
                 shift_seed_budget=16 * scale, hit_budget=64 * scale,
-                dp_frac=0.3125, n_threads=n_threads, device=device)
+                dp_frac=0.3125, n_threads=n_threads, device=device,
+                dp_fold=dp_fold)
 
         Lmax = _round16(max(r.l_seq for r in first))
         mapper = make_mapper(Lmax)
@@ -137,17 +160,73 @@ def run_sr_sam(mi, mo, query: str, out_path: str | None, n_threads: int,
             tier["over"], tier["max_len"] = 0, 0
             mapper = make_mapper(Lmax)
         n_mapped = counter[0]
-    if bout is not sys.stdout.buffer:
-        bout.close()
-    _log(verbose, t0, f"mapped {n_mapped} sequences")
-    if verbose >= 3:
-        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
-        print(f"[M::gdiet] Version: {__version__}", file=sys.stderr)
-        print(f"[M::gdiet] CMD: {cli_line}", file=sys.stderr)
-        print(f"[M::gdiet] Real time: {time.perf_counter() - t0:.3f} sec; "
-              f"CPU: {time.process_time():.3f} sec; Peak RSS: {rss:.3f} GB",
-              file=sys.stderr)
-        PROFILE.report(sys.stderr)
+    _close_and_report(bout, n_mapped, verbose, cli_line, t0)
+    return 0
+
+
+def run_sr_pe_sam(mi, mo, q1: str, q2: str, out_path: str | None,
+                  n_threads: int, verbose: int, cli_line: str, t0: float,
+                  device, batch_pairs: int = 4096, dp_fold: bool = False) -> int:
+    """Paired-end SR + SAM path (gdiet_tpu/runtime.py:338-430): both ends
+    of each pair map as fused-step rows; pairing and the mate-field records
+    run in the native ``pe_finish_batch``. Fixed batch of P pairs (the next
+    power of two up to ``batch_pairs``), tail padded; trailing records
+    without a mate map single-end through the oracle."""
+    from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
+
+    it1, it2 = _host.fastx.read_fastx(q1), _host.fastx.read_fastx(q2)
+    first: list = []
+    odd: list = []  # unpaired leftovers (file length mismatch)
+    for r1 in it1:
+        r2 = next(it2, None)
+        if r2 is None:
+            odd.append(r1)
+            break
+        first.append((r1, r2))
+        if len(first) >= batch_pairs:
+            break
+    bout = _open_sam(out_path, mi, cli_line)
+    n_mapped = 0
+    if first:
+        P = 1
+        while P < len(first):
+            P <<= 1
+        P = min(P, batch_pairs)
+        L0 = max(max(a.l_seq, b.l_seq) for a, b in first)
+        Lmax = min(304, -(-max(L0, 64) // 16) * 16)
+        scale = -(-Lmax // 160)  # bench budgets are tuned at Lmax=160
+        mapper = ShortReadMapper(
+            mi, mo, max_read_len=Lmax, seed_budget=32 * scale,
+            shift_seed_budget=16 * scale, hit_budget=64 * scale,
+            dp_frac=0.3125, n_threads=n_threads, device=device,
+            dp_fold=dp_fold)
+        counter = [0]
+
+        def batches():
+            buf = first
+            for r1 in it1:
+                r2 = next(it2, None)
+                if r2 is None:
+                    odd.append(r1)
+                    break
+                if len(buf) == P:
+                    counter[0] += 2 * len(buf)
+                    yield buf
+                    buf = []
+                buf.append((r1, r2))
+            counter[0] += 2 * len(buf)
+            if len(buf) == P:
+                yield buf
+            elif buf:
+                yield (buf + [buf[0]] * (P - len(buf)), len(buf))
+
+        for blob in mapper.map_stream_sam_pe(batches()):
+            bout.write(blob)
+        n_mapped = counter[0]
+        for rec in [*odd, *it2]:  # trailing unpaired records map single-end
+            bout.write(mapper._oracle_sam(rec, 0))
+            n_mapped += 1
+    _close_and_report(bout, n_mapped, verbose, cli_line, t0)
     return 0
 
 
@@ -155,8 +234,8 @@ def run_mapping(io, mo, variant: str, target: str, queries: list,
                 device, fnw: str | None = None, out_path: str | None = None,
                 n_threads: int = 3, verbose: int = 3,
                 cli_line: str = "gdiet") -> int:
-    """Build or load the index on ``device``, then map. Only single-end
-    short reads to SAM are ported; everything else raises."""
+    """Build or load the index on ``device``, then map. Single-end and
+    paired-end short reads to SAM are ported; everything else raises."""
     cfg = _host.config
     t0 = time.perf_counter()
     device = torch.device(device)
@@ -167,8 +246,16 @@ def run_mapping(io, mo, variant: str, target: str, queries: list,
         unsupported.append("long-read presets")
     if queries and not (mo.flag & cfg.MM_F_OUT_SAM):
         unsupported.append("PAF output (use -a)")
-    if len(queries) > 1:
-        unsupported.append("paired-end / several query files")
+    if len(queries) > 2:
+        unsupported.append("more than two query files")
+    if len(queries) == 2 and (
+            os.environ.get("GDIET_NO_PE_FAST") or mo.pe_ori < 0
+            or not (mo.flag & cfg.MM_F_CIGAR) or _host.debug.enabled()
+            or mo.sdust_thres > 0):
+        # gdiet_tpu/runtime.py:503-513 sends these to its generic
+        # per-record paired-end writer
+        unsupported.append("the generic paired-end path (GDIET_NO_PE_FAST, "
+                           "pe_ori < 0, no CIGAR, --print-seeds or -T)")
     if mo.split_prefix or mo.split_len > 0:
         unsupported.append("--split-prefix / --split-reads")
     if mo.mesh_shape is not None:
@@ -186,5 +273,11 @@ def run_mapping(io, mo, variant: str, target: str, queries: list,
         _log(verbose, t0, f"dumped the index to {fnw}")
     if not queries:
         return 0
+    # GDIET_DP_FOLD=1 takes the folded DP, as it does in gdiet_tpu
+    dp_fold = os.environ.get("GDIET_DP_FOLD", "0") == "1"
+    if len(queries) == 2:
+        return run_sr_pe_sam(mi, mo, queries[0], queries[1], out_path,
+                             n_threads, verbose, cli_line, t0, device,
+                             dp_fold=dp_fold)
     return run_sr_sam(mi, mo, queries[0], out_path, n_threads, verbose,
-                      cli_line, t0, device)
+                      cli_line, t0, device, dp_fold=dp_fold)

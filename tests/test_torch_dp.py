@@ -1,7 +1,7 @@
 """Port DP vs gdiet_tpu.ops.dp.extd2_batch (the plain reference of the
 Pallas kernel), bit for bit: score (NEG_INF rows included), the whole dirs
-tensor, offs and off_ends. The CUDA kernel is held against the plain
-version on a card; without one that case skips.
+tensor, offs and off_ends. The CUDA kernels (unfolded and folded) are held
+against their plain versions on a card; without one those cases skip.
 
 JAX is imported inside the tests that use it, so that the CUDA case also
 runs on a GPU host without JAX:
@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from gdiet_tpu_torch.ops import dp, extd2
+from gdiet_tpu_torch.ops import dp, dp_fold, extd2
 
 LMAX = 96
 
@@ -118,5 +118,23 @@ def test_cuda_kernel_matches_plain():
     torch.cuda.synchronize()
     assert extd2.launches.n == launches + 1
     ref = dp.extd2_batch(*args, prm, 160)
+    for a, b in zip(ref, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,Lmax,Lt", [(400, 160, None), (40, LMAX, 120)])
+def test_cuda_fold_kernel_matches_plain(N, Lmax, Lt):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    prm = (2, 8, 12, 2, 24, 1)
+    Q, T, lens, tlens, band = _cases(17, N=N, Lmax=Lmax, Lt=Lt)
+    args = [torch.from_numpy(a).cuda() for a in (Q, T, lens, band)]
+    tl = torch.from_numpy(tlens).cuda() if Lt else None
+    launches = extd2.fold_launches.n
+    got = extd2.extd2_batch(*args, prm, Lmax, tlens=tl, Lt=Lt, fold=True)
+    torch.cuda.synchronize()
+    assert extd2.fold_launches.n == launches + 1
+    ref = dp_fold.extd2_fold(*args, prm, Lmax, tlens=tl, Lt=Lt)
     for a, b in zip(ref, got):
         assert torch.equal(a, b)

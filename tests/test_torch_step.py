@@ -6,6 +6,8 @@ non-TPU backend) and the port's step; the sorted hit streams (``upto=
 identical.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -151,6 +153,89 @@ def test_step_bit_equal(data_dir, problem, budgets):
     # the batch must reach the DP, not only the exact/sub-only shortcuts
     K = jm.cfg.K
     assert (meta[:, 3 + 11 * K: 3 + 12 * K] >= 0).any()
+
+
+FIXTURE_BUDGETS = dict(Lmax=160, S=32, S2=16, A=64, dp_frac=0.3125)
+
+
+@pytest.mark.parametrize("problem", ["fixture", "repeats"])
+def test_step_fold_bit_equal(data_dir, problem):
+    """The port's step with the folded DP against JAX's unfolded step on
+    the CPU: the fold is SAM-identical (dp_pallas.py:57-58), so meta and
+    ops must be byte-identical."""
+    from gdiet_tpu_torch.ops import dp_fold
+
+    mi, mo, codes, lens, _ = (_fixture_problem(data_dir) if problem == "fixture"
+                              else _repeat_problem())
+    codes = _add_indels(codes, lens, seed=len(lens))
+    jm = FusedMapper(mi, mo, **FIXTURE_BUDGETS)
+    tm = tds.TorchFusedMapper(TorchIndex.from_numpy(mi, "cpu"), mo,
+                              **FIXTURE_BUDGETS, device="cpu")
+    cfg = dataclasses.replace(tm.cfg, dp_fold=True)
+    oj = fused_map_step(jnp.asarray(codes), jnp.asarray(lens), **jm.arrays, cfg=jm.cfg)
+    calls = dp_fold.calls.n
+    ot = tds.fused_map_step(torch.from_numpy(codes), torch.from_numpy(lens),
+                            tm.tables, cfg)
+    assert dp_fold.calls.n == calls + 1
+    meta = np.asarray(oj["meta"])
+    _same("meta", meta, ot["meta"])
+    _same("ops", oj["ops"], ot["ops"])
+    K = jm.cfg.K
+    assert (meta[:, 3 + 11 * K: 3 + 12 * K] >= 0).any()
+
+
+def test_mapper_resolves_fold():
+    """dp_fold folds exactly where the banded window cannot engage
+    (device_step.py:1325-1328), and the retry tier keeps the layout."""
+    from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
+
+    mi, mo, _, _, _ = _tiny_problem(n_reads=4, lmax=128)
+    tmi = TorchIndex.from_numpy(mi, "cpu")
+    assert tds.TorchFusedMapper(tmi, mo, Lmax=160, S=32, S2=16, A=64,
+                                device="cpu", dp_fold=True).cfg.dp_fold
+    sm = ShortReadMapper(tmi, mo, max_read_len=160, seed_budget=32,
+                         shift_seed_budget=16, hit_budget=64, dp_frac=0.3125,
+                         device="cpu", dp_fold=True)
+    assert sm.fused.cfg.dp_fold and sm._retry_mapper().cfg.dp_fold
+    assert not tds.TorchFusedMapper(tmi, mo, Lmax=160, S=32, S2=16, A=64,
+                                    device="cpu").cfg.dp_fold
+    mo.bw_max = 40  # a window of 256 lanes < 384 engages at Lmax 304
+    assert not tds.TorchFusedMapper(tmi, mo, Lmax=304, S=32, S2=16, A=64,
+                                    device="cpu", dp_fold=True).cfg.dp_fold
+
+
+@pytest.mark.parametrize("problem", ["tiny", "fixture"])
+def test_step_frac_seeds_bit_equal(data_dir, problem):
+    """The fractional -i branch (the sr preset's default -i 0.1): cropped
+    shift-0 inference, then the query sketch, at every cut of the step."""
+    if problem == "tiny":
+        budgets = dict(Lmax=128, S=64, S2=32, A=256, dp_frac=1.0)
+        mi, mo, codes, lens, _ = _tiny_problem(n_reads=24, lmax=128)
+    else:
+        budgets = FIXTURE_BUDGETS
+        mi, mo, codes, lens, _ = _fixture_problem(data_dir)
+    mo.max_seeds = 0.1
+    codes = _add_indels(codes, lens, seed=len(lens))
+    jm = FusedMapper(mi, mo, **budgets)
+    tm = tds.TorchFusedMapper(TorchIndex.from_numpy(mi, "cpu"), mo,
+                              **budgets, device="cpu")
+    assert jm.cfg.frac_mode and tm.cfg.frac_mode
+    jc, jl = jnp.asarray(codes), jnp.asarray(lens)
+    tc, tl = torch.from_numpy(codes), torch.from_numpy(lens)
+    names = ("fk", "fq", "fok", "rk", "rq", "rok")
+    seed_j = fused_map_step(jc, jl, **jm.arrays, cfg=jm.cfg, upto="seed")
+    for n, a, b in zip(names, seed_j, tds.fused_map_step(tc, tl, tm.tables, tm.cfg,
+                                                         upto="seed")):
+        _same(f"seed/{n}", a, b)
+    vj = fused_map_step(jc, jl, **jm.arrays, cfg=jm.cfg, upto="vote")
+    vt = tds.fused_map_step(tc, tl, tm.tables, tm.cfg, upto="vote")
+    for n in vj:
+        _same(f"vote/{n}", vj[n], vt[n])
+    oj = fused_map_step(jc, jl, **jm.arrays, cfg=jm.cfg)
+    ot = tds.fused_map_step(tc, tl, tm.tables, tm.cfg)
+    _same("meta", np.asarray(oj["meta"]), ot["meta"])
+    _same("ops", oj["ops"], ot["ops"])
+    assert np.asarray(seed_j[2]).any()  # hits reach the vote
 
 
 def test_seed_select_streaks():
