@@ -6,9 +6,10 @@
 Needs one CUDA GPU, the CUDA toolkit (nvcc) and a C compiler; imports no
 JAX. Phases, each printing one line:
 
-1. device/build: ``nvidia-smi`` name and power limit; every CUDA kernel of
-   the main paths built from the checkout's sources, one ``nvcc`` per
-   source started together (seconds and ``ptxas -v`` output per kernel).
+1. device/build: ``nvidia-smi`` name and power limit; the four CUDA kernels
+   of the SR, PE and LR paths built from the checkout's sources, one
+   ``nvcc`` per source started together (seconds and ``ptxas -v`` output
+   per kernel).
 2. kernel: the CUDA ``extd2`` DP kernel against its plain torch version on
    the card at the short-read main-path shape (6,272 rows, Lmax = Lt = 160,
    qlen 150, bands 150-200; seeded pairs with substitutions, indels, N bases
@@ -53,6 +54,28 @@ JAX. Phases, each printing one line:
    DP inputs of one batch, as the step hands them to the fold kernel, go
    through the kernel and the plain fold version once more: bit-equal.
 
+8. kernel_band: the banded lane window kernel ``extd2_band`` against its
+   plain version at the (2048, 3072) long-read bucket, 64 seeded windows
+   (equal, mutated, indels, N codes, dead rows), at band 500 (WB 768) and
+   1300 (WB 1,536, two lanes per thread): scores, every dirs byte, offs and
+   off_ends exact, and ``backtrack_band`` on those dirs equal to the plain
+   backtrack. The unwindowed (512, 1024) bucket of band 1000 through
+   ``extd2`` (1,024 threads) and the backtrack kernel's full-width mode,
+   exact. Then both kernels alone at (4096, 5120). Times as in phase 2, the
+   plain versions one run each; every kernel's bound from this run's data.
+9. golden_lr: ``tests/data/ref_lr.fa`` + ``reads_lr.fq`` through the port's
+   CLI on ``cuda`` with the HiFi and ONT arguments of
+   ``tests/data/make_lr_fixtures.py``: records byte-equal to
+   ``golden_lr_hifi.sam`` and ``golden_lr_ont.sam``.
+10. lr: the HiFi path at full size: bench.py's ``gen_lr_reads`` recipe on
+   the bench genome, its ``lr_stats`` options and mapper budgets, 1
+   warm-up + 3 timed batches of 256 reads. Counts reset just before and
+   read just after. Checks: >= 90% of reads mapped, the first 32 reads'
+   SAM equal to the scalar oracle's, band and backtrack kernel launches > 0
+   and no plain banded DP or plain backtrack call. One batch's per-phase
+   times; one chunk's captured DP inputs (the smallest bucket) through the
+   kernels and the plain versions once more, exact.
+
 Then a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before the last line is printed. Without a
 GPU it exits non-zero at once.
@@ -76,7 +99,7 @@ GENOME_LEN, READ_LEN, SUB_RATE, SEED = 2_000_000, 150, 0.005, 20260816
 BENCH_B, N_TIMED = 10016, 4
 N_ORACLE, N_UNMAPPED_ORACLE = 128, 64
 KERNEL_SHAPE = dict(N=6272, L=160, qlen=150)
-KERNEL_ROUNDS = 5  # rounds of 10 launches; the median is reported
+KERNEL_ROUNDS, KERNEL_REPS = 5, 10  # rounds of 10 launches; the median is reported
 PE_PAIRS, PE_TIMED, PE_ORACLE = 4096, 3, 64
 FRAG_MIN, FRAG_MAX = 250, 500
 PE_ARGS = ["-a", "-t", "1", "-x", "sr", "-Z", "10", "-W", "2", "-k", "21",
@@ -95,9 +118,9 @@ def check(cond: bool, msg: str) -> None:
 
 
 def sr_options(pattern: str = "10"):
-    from gdiet_tpu_torch import _host
+    from gdiet_tpu_torch.config import options_for
 
-    return _host.config.options_for(
+    return options_for(
         "sr", pattern=pattern, max_seeds=2.0, best_n=1, bw_frac=0.05,
         bw_min=150, bw_max=200, min_cnt=0.95, rec_threshold_frac=0.3,
         min_dp_max=100, AF_max_loc=2)
@@ -151,12 +174,53 @@ def dp_pairs(N: int, L: int, qlen: int, seed: int = 1):
 PARAMS = (2, 8, 12, 2, 24, 1)  # the sr preset's scoring
 
 
-def kernel_vs_plain(kern, plain, cuda: bool):
+# bounds of the card (NVIDIA's H100 SXM data sheet): HBM bandwidth, and
+# the int32 issue rate of 132 SMs x 64 INT32 lanes per clock x 1.98 GHz
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# integer operations per updated lane of the DP recurrence (the body of
+# csrc/extd2*.cu: candidates, maxima, direction bits, state updates,
+# substitution score) and per step of the backtrack walk
+DP_OPS_PER_CELL = 57
+BT_OPS_PER_STEP = 30
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: bytes over HBM bandwidth or
+    int32 operations over the issue rate, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "int_ops": n_ops}
+
+
+def dp_bound(inputs, out) -> dict:
+    """Bound of one DP call: its inputs read and its score and dirs
+    written once; the operations of the lanes its band updates (the live
+    16-aligned [offs, off_ends] span of every wavefront)."""
+    offs, off_ends = out[2], out[3]
+    live = off_ends >= 0
+    cells = float(((off_ends - offs + 1) * live).sum())
+    n_bytes = sum(a.numel() * a.element_size() for a in inputs if a is not None)
+    n_bytes += out[0].numel() * 4 + out[1].numel()
+    return {**bound(n_bytes, cells * DP_OPS_PER_CELL), "cells": cells}
+
+
+def backtrack_bound(out, N: int) -> dict:
+    """Bound of one backtrack: one dirs byte read and one op written per
+    walk step, the op rows, end points and lengths."""
+    steps = float((out[0] != 255).sum())
+    n_bytes = steps + out[0].numel() + 8 * N + 12 * N
+    return {**bound(n_bytes, steps * BT_OPS_PER_STEP), "steps": steps}
+
+
+def kernel_vs_plain(kern, plain, cuda: bool, plain_runs: int = 2):
     """Both versions' outputs and times: 3 warm-up launches (load the
     library, lift the clocks), then plain, 5 rounds of 10 launches, plain.
     One reading of either side alone swings with the host's enqueue
     latency, so the kernel takes the median of the rounds and the plain
-    version the better of its two runs."""
+    version the better of its runs (one run only where it takes seconds)."""
     import torch
 
     def timed(fn, reps):
@@ -176,15 +240,17 @@ def kernel_vs_plain(kern, plain, cuda: bool):
 
     for _ in range(3):
         kern()
-    plain_out, plain_a = timed(plain, 1)
+    plain_out, plain_ms = timed(plain, 1)
+    runs = [plain_ms]
     rounds = []
     for _ in range(KERNEL_ROUNDS):
-        kern_out, ms = timed(kern, 10)
+        kern_out, ms = timed(kern, KERNEL_REPS)
         rounds.append(ms)
-    _, plain_b = timed(plain, 1)
+    if plain_runs > 1:
+        runs.append(timed(plain, 1)[1])
     return kern_out, plain_out, {
         "kernel_ms": float(np.median(rounds)), "kernel_ms_rounds": rounds,
-        "plain_ms": min(plain_a, plain_b), "plain_ms_runs": [plain_a, plain_b]}
+        "plain_ms": min(runs), "plain_ms_runs": runs}
 
 
 def _max_err(a, b) -> int:
@@ -211,22 +277,24 @@ def phase_kernel(device, N: int, L: int, qlen: int, card: str) -> dict:
     res = {"rows": N, "Lmax": L, "qlen": qlen, **times,
            "kernel_mcups": cells / (times["kernel_ms"] * 1e3),
            "plain_mcups": cells / (times["plain_ms"] * 1e3),
-           "max_abs_err": max(s_err, d_err), "card": card}
+           "max_abs_err": max(s_err, d_err), **dp_bound((q, t, ln, bd), kern_out),
+           "card": card}
     say("kernel", **res)
     return res
 
 
-def check_fold_equal(kern_out, plain_out, what: str) -> int:
-    """Scores, every byte of the raw folded dirs, offs and off_ends of the
-    fold kernel bit-equal to the plain fold version's. Returns the largest
-    difference (0)."""
+DP_OUTPUTS = ("scores", "dirs", "offs", "off_ends")
+BT_OUTPUTS = ("ops", "fin_i", "fin_j")
+
+
+def check_equal(got, ref, names, what: str) -> int:
+    """Every output of a kernel bit-equal to its plain version's. Returns
+    the largest difference (0)."""
     import torch
 
-    errs = [_max_err(a, b) for a, b in zip(kern_out, plain_out)]
-    for name, a, b, err in zip(("scores", "dirs", "offs", "off_ends"), kern_out,
-                               plain_out, errs):
-        check(a.shape == b.shape and torch.equal(a, b),
-              f"extd2_fold {name} differ on {what} (max {err})")
+    errs = [_max_err(a, b) if a.shape == b.shape else -1 for a, b in zip(got, ref)]
+    for name, a, b, err in zip(names, got, ref, errs):
+        check(a.shape == b.shape and torch.equal(a, b), f"{what}: {name} differ (max {err})")
     return max(errs)
 
 
@@ -253,12 +321,12 @@ def phase_kernel_fold(device, N: int, L: int, qlen: int, card: str,
         lambda: extd2.extd2_batch(q, t, ln, bd, PARAMS, L, fold=True),
         lambda: dp_fold.extd2_fold(q, t, ln, bd, PARAMS, L),
         torch.device(device).type == "cuda")
-    err = check_fold_equal(kern_out, plain_out, f"{N} rows")
+    err = check_equal(kern_out, plain_out, DP_OUTPUTS, f"extd2_fold on {N} rows")
     unfold = extd2.extd2_batch(q, t, ln, bd, PARAMS, L)
     check(torch.equal(unfold[0], kern_out[0]), "folded and unfolded scores differ")
     bt_f = backtrack_antidiag(kern_out[1], ln, bd, L, fold=True)
     bt_u = backtrack_antidiag(unfold[1], ln, bd, L)
-    for name, a, b in zip(("ops", "fin_i", "fin_j"), bt_f, bt_u):
+    for name, a, b in zip(BT_OUTPUTS, bt_f, bt_u):
         check(torch.equal(a, b), f"folded and unfolded backtracks differ in {name}")
     H, Tf, _ = dp_fold.fold_geometry(L)
     _, Nrows, C = dp_fold.fold_split(N, Tf)
@@ -268,7 +336,7 @@ def phase_kernel_fold(device, N: int, L: int, qlen: int, card: str,
            "kernel_mcups": cells / (times["kernel_ms"] * 1e3),
            "plain_mcups": cells / (times["plain_ms"] * 1e3),
            "max_abs_err": err, "backtrack_equal_to_unfolded": True,
-           "card": card}
+           **dp_bound((q, t, ln, bd), kern_out), "card": card}
     say(phase, **res)
     return res
 
@@ -279,11 +347,10 @@ def _map_sam(mapper, reads) -> list:
 
 
 def phase_golden(device) -> dict:
-    from gdiet_tpu_torch import _host
     from gdiet_tpu_torch.index import build_index
+    from gdiet_tpu_torch.io.fastx import read_fastx
     from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
 
-    read_fastx = _host.fastx.read_fastx
     out = {}
     for ref, reads, golden, pattern, lmax in (
             ("ref.fa", "reads.fq", "golden.sam", "10", 256),
@@ -308,7 +375,7 @@ def bench_workload(n_reads: int, genome_len: int = GENOME_LEN):
     """bench.py's recipe (bench.py:63-90), in memory: genome, read origins,
     reverse-strand flags, reads (0.5% substitutions, half
     reverse-complemented)."""
-    from gdiet_tpu_torch import _host
+    from gdiet_tpu_torch.io.fastx import SeqRecord
 
     rng = np.random.default_rng(SEED)
     bases = np.frombuffer(b"ACGT", np.uint8)
@@ -321,7 +388,6 @@ def bench_workload(n_reads: int, genome_len: int = GENOME_LEN):
     R[rev] = 3 - R[rev, ::-1]
     seqs = bases[R]
     qual = "I" * READ_LEN
-    SeqRecord = _host.fastx.SeqRecord
     reads = [SeqRecord(f"r{n}", seqs[n].tobytes().decode(), qual) for n in range(n_reads)]
     return bases[genome].tobytes().decode(), st, rev, reads
 
@@ -497,7 +563,7 @@ def pe_workload(n_pairs: int, genome_len: int = GENOME_LEN):
     bp, 150 bp ends at 0.5% substitutions, half the fragments from the
     reverse strand. Returns (genome, origin [n, 2] leftmost base of each
     end, rev [n, 2] reverse-strand flags, pairs)."""
-    from gdiet_tpu_torch import _host
+    from gdiet_tpu_torch.io.fastx import SeqRecord
 
     genome = np.random.default_rng(SEED).integers(0, 4, genome_len, dtype=np.int64)
     rng = np.random.default_rng(SEED + 1)
@@ -517,7 +583,6 @@ def pe_workload(n_pairs: int, genome_len: int = GENOME_LEN):
                        np.where(flip, st, st + frag - READ_LEN)], 1)
     rev = np.stack([flip, ~flip], 1)
     qual = "I" * READ_LEN
-    SeqRecord = _host.fastx.SeqRecord
     s1, s2 = bases[R1], bases[R2]
     pairs = [(SeqRecord(f"p{n}/1", s1[n].tobytes().decode(), qual),
               SeqRecord(f"p{n}/2", s2[n].tobytes().decode(), qual)) for n in range(n_pairs)]
@@ -527,7 +592,7 @@ def pe_workload(n_pairs: int, genome_len: int = GENOME_LEN):
 def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
     import torch
 
-    from gdiet_tpu_torch import _host
+    from gdiet_tpu_torch import config
     from gdiet_tpu_torch.index import build_index
     from gdiet_tpu_torch.ops import dp, dp_fold, extd2
     from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
@@ -541,7 +606,7 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
     n_pairs = P * (n_timed + 1)
     genome, origin, rev, pairs = pe_workload(n_pairs, genome_len)
     io_, mo = sr_options()
-    mo.flag |= _host.config.MM_F_OUT_SAM | _host.config.MM_F_CIGAR  # -a
+    mo.flag |= config.MM_F_OUT_SAM | config.MM_F_CIGAR  # -a
     mi = build_index([("chr1", genome)], io_, device)
 
     def make_mapper(fold: bool) -> ShortReadMapper:
@@ -632,9 +697,9 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
     check(len(seen) == 1 and seen[0][1].get("fold"), "the step made no folded DP call")
     (q, t, ln, bd, params, L), _ = seen[0]
     check(tuple(params) == PARAMS, f"the step's scoring {params} is not {PARAMS}")
-    path_err = check_fold_equal(extd2.extd2_batch(q, t, ln, bd, PARAMS, L, fold=True),
-                                dp_fold.extd2_fold(q, t, ln, bd, PARAMS, L),
-                                "the PE step's DP inputs")
+    path_err = check_equal(extd2.extd2_batch(q, t, ln, bd, PARAMS, L, fold=True),
+                           dp_fold.extd2_fold(q, t, ln, bd, PARAMS, L), DP_OUTPUTS,
+                           "extd2_fold on the PE step's DP inputs")
     res = {"pairs": n_pairs, "timed_pairs": P * n_timed, "batch_pairs": P,
            "pairs_per_s": P * n_timed / wall, "timed_wall_s": wall,
            "fallback_pairs": warm["fallback_reads"] + mapper.stats["fallback_reads"],
@@ -646,6 +711,312 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
            "oracle_pairs_equal": PE_ORACLE, "first_batch_equal_unfolded": True,
            "phase_ms": phases, "card": card}
     say("pe", **res)
+    return res
+
+
+LR_PARAMS = (1, 4, 6, 2, 26, 1)  # the map-hifi preset's scoring
+LR_BANDS = (500, 1300)  # bench.py's HiFi and ONT recipes' bandwidths
+LR_READS, LR_BATCH, LR_TIMED, LR_ORACLE = 1024, 256, 3, 32
+HIFI_ARGS = ["-a", "-t", "1", "-x", "map-hifi", "-Z", "10", "-W", "2", "-k", "19",
+             "-w", "19", "-i", "0.2", "-r", "200", "--vt_dis=650", "--vt_nb_loc=5",
+             "--vt_df1=0.0106", "--vt_df2=0.2", "-s", "100", "--vt_cov", "0.04",
+             "--vt_f=0.04", "-v", "1"]
+ONT_ARGS = ["-a", "-t", "1", "-x", "map-ont", "-Z", "10", "-W", "2", "-k", "15",
+            "-w", "10", "-r", "300", "--vt_dis=1000", "--vt_nb_loc=3",
+            "--vt_df1=0.007", "--vt_df2=0.007", "-s", "100", "--vt_cov", "0.1",
+            "-v", "1"]
+
+
+def band_windows(N: int, Lmax: int, Lt: int, seed: int = 3):
+    """Seeded long-read DP windows: equal, mutated (1% substitutions),
+    with 1-8 base indels, unrelated; N codes, dead rows; qlen 3/4..1 of
+    Lmax, tlen qlen..qlen+64 (as the mapper's segment windows)."""
+    rng = np.random.default_rng(seed)
+    Q = rng.integers(0, 4, (N, Lmax), dtype=np.uint8)
+    T = rng.integers(0, 4, (N, Lt), dtype=np.uint8)
+    lens = rng.integers(Lmax * 3 // 4, Lmax + 1, N).astype(np.int32)
+    tlens = np.minimum(lens + rng.integers(0, 65, N), Lt).astype(np.int32)
+    for n in range(N):
+        kind = n % 4
+        if kind == 3:
+            continue  # unrelated
+        t = Q[n].copy()
+        if kind >= 1:
+            sub = rng.random(Lmax) < 0.01
+            t[sub] = (t[sub] + 1) % 4
+        if kind == 2:
+            for _ in range(3):
+                p, g = int(rng.integers(10, Lmax - 10)), int(rng.integers(1, 9))
+                t = (np.concatenate([t[:p], rng.integers(0, 4, g), t[p:]]) if rng.random() < 0.5
+                     else np.concatenate([t[:p], t[p + g:], rng.integers(0, 4, g)]))[:Lmax]
+        T[n, :Lmax] = t
+    Q[rng.random(Q.shape) < 0.001] = 4
+    T[rng.random(T.shape) < 0.001] = 4
+    lens[7::29] = 0
+    return Q, T, lens, tlens
+
+
+def phase_kernel_band(device, card: str, N: int = 64, Lmax: int = 2048,
+                      Lt: int = 3072, big: tuple = (4096, 5120)) -> dict:
+    """The banded lane window kernel against its plain version at the
+    (2048, 3072) long-read bucket, at band budgets 500 (WB 768, one lane
+    per thread) and 1300 (WB 1,536, two lanes per thread): scores, every
+    dirs byte, offs and off_ends exact; the backtrack kernel on those dirs
+    equal to the plain backtrack. The unwindowed (512, 1024) bucket of
+    map-hifi's default band 1000 through extd2.cu (1,024 threads) and the
+    backtrack kernel's full-width mode, exact. Then both kernels alone at
+    the HiFi workload's largest bucket, (4096, 5120) with band 500."""
+    import torch
+
+    from gdiet_tpu_torch.ops import dp, dp_band, extd2
+    from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
+
+    cuda = torch.device(device).type == "cuda"
+    U = dp_band.LR_UNROLL
+    out = {"runs": []}
+    for bb in LR_BANDS:
+        Q, T, lens, tlens = band_windows(N, Lmax, Lt)
+        band = np.full(N, bb, np.int32)
+        q, t, ln, bd, tl = (torch.from_numpy(a).to(device) for a in (Q, T, lens, band, tlens))
+        kern_out, plain_out, times = kernel_vs_plain(
+            lambda: extd2.extd2_batch(q, t, ln, bd, LR_PARAMS, Lmax, tlens=tl, Lt=Lt,
+                                      band_budget=bb, unroll=U),
+            lambda: dp_band.extd2_band(q, t, ln, bd, LR_PARAMS, Lmax, tl, Lt, bb, U),
+            cuda, plain_runs=1)
+        err = check_equal(kern_out, plain_out, DP_OUTPUTS,
+                          f"extd2_band at band {bb}")
+        bt_out, bt_plain, bt_times = kernel_vs_plain(
+            lambda: extd2.backtrack_band(kern_out[1], ln, tl, bd, Lmax, Lt,
+                                         band_budget=bb, unroll=U),
+            lambda: backtrack_antidiag(kern_out[1], ln, bd, Lmax, tlens=tl, Lt=Lt,
+                                       band_budget=bb, unroll=U),
+            cuda, plain_runs=1)
+        bt_err = check_equal(bt_out, bt_plain, BT_OUTPUTS,
+                             f"backtrack_band at band {bb}")
+        _, R, WB = dp_band.band_shape(Lmax, Lt, bb, U)
+        out["runs"].append({
+            "band_budget": bb, "WB": WB, "R": R, **times, "max_abs_err": err,
+            **dp_bound((q, t, ln, bd, tl), kern_out),
+            "live_rows": int((lens > 0).sum()),
+            "reach_corner": int((kern_out[0] > -0x40000000).sum()),
+            "backtrack": {**bt_times, "max_abs_err": bt_err,
+                          **backtrack_bound(bt_out, N)}})
+    # map-hifi's default bw 1000 leaves the (512, 1024) bucket unwindowed:
+    # extd2.cu at 1,024 threads per block, the backtrack kernel on the
+    # full-width layout
+    Lq1, Lt1, bw1 = 512, 1024, 1000
+    check(dp_band.window_geometry(bw1, Lt1, U) is None, "the (512, 1024) bucket is windowed")
+    Q, T, lens, tlens = band_windows(N, Lq1, Lt1, seed=5)
+    band = np.full(N, bw1, np.int32)
+    q, t, ln, bd, tl = (torch.from_numpy(a).to(device) for a in (Q, T, lens, band, tlens))
+    n0 = extd2.launches.n
+    fw = extd2.extd2_batch(q, t, ln, bd, LR_PARAMS, Lq1, tlens=tl, Lt=Lt1,
+                           band_budget=bw1, unroll=U)
+    check(not cuda or extd2.launches.n == n0 + 1, "the (512, 1024) bucket launched no extd2")
+    fw_err = check_equal(fw, dp.extd2_batch(q, t, ln, bd, LR_PARAMS, Lq1, tl, Lt1),
+                         DP_OUTPUTS, "extd2 at (512, 1024)")
+    fw_bt_err = check_equal(
+        extd2.backtrack_band(fw[1], ln, tl, bd, Lq1, Lt1, band_budget=bw1, unroll=U),
+        backtrack_antidiag(fw[1], ln, bd, Lq1, tlens=tl, Lt=Lt1, band_budget=bw1, unroll=U),
+        BT_OUTPUTS, "backtrack_band on the full-width layout")
+    out["full_width_bucket"] = {"Lmax": Lq1, "Lt": Lt1, "band_budget": bw1,
+                                "threads": dp.round16(Lt1), "max_abs_err": fw_err,
+                                "backtrack_max_abs_err": fw_bt_err}
+    # the HiFi workload's largest bucket: the kernels alone
+    (Lq4, Lt4), bb = big, LR_BANDS[0]
+    Q, T, lens, tlens = band_windows(N, Lq4, Lt4, seed=4)
+    band = np.full(N, bb, np.int32)
+    q, t, ln, bd, tl = (torch.from_numpy(a).to(device) for a in (Q, T, lens, band, tlens))
+    big, _, big_times = kernel_vs_plain(
+        lambda: extd2.extd2_batch(q, t, ln, bd, LR_PARAMS, Lq4, tlens=tl, Lt=Lt4,
+                                  band_budget=bb, unroll=U), lambda: None, cuda, plain_runs=1)
+    bt, _, bt_times = kernel_vs_plain(
+        lambda: extd2.backtrack_band(big[1], ln, tl, bd, Lq4, Lt4, band_budget=bb, unroll=U),
+        lambda: None, cuda, plain_runs=1)
+    _, R, WB = dp_band.band_shape(Lq4, Lt4, bb, U)
+    out["hifi_largest_bucket"] = {
+        "Lmax": Lq4, "Lt": Lt4, "band_budget": bb, "WB": WB, "R": R, "N": N,
+        "kernel_ms": big_times["kernel_ms"], "kernel_ms_rounds": big_times["kernel_ms_rounds"],
+        **dp_bound((q, t, ln, bd, tl), big),
+        "backtrack_ms": bt_times["kernel_ms"], "backtrack": backtrack_bound(bt, N)}
+    out.update(N=N, Lmax=Lmax, Lt=Lt, card=card)
+    say("kernel_band", **out)
+    return out
+
+
+def phase_golden_lr(card: str, device: str = "cuda") -> dict:
+    """The long-read fixture (64 reads) through the port's CLI on the card
+    with make_lr_fixtures.py's HiFi and ONT arguments: records byte-equal
+    to the reference binary's golden SAMs, through the band kernel."""
+    import tempfile
+
+    from gdiet_tpu_torch import cli
+    from gdiet_tpu_torch.ops import extd2
+    from gdiet_tpu_torch.testing import sam_body
+
+    inputs = [str(DATA / "ref_lr.fa"), str(DATA / "reads_lr.fq")]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, args in (("hifi", HIFI_ARGS), ("ont", ONT_ARGS)):
+            n0, b0 = extd2.band_launches.n, extd2.backtrack_launches.n
+            path = pathlib.Path(tmp) / f"{tag}.sam"
+            t0 = time.perf_counter()
+            check(cli.main(["--device", device, *args, "-o", str(path), *inputs]) == 0,
+                  f"LR CLI ({tag}) failed")
+            mine, gold = sam_body(path), sam_body(DATA / f"golden_lr_{tag}.sam")
+            same = sum(a == b for a, b in zip(mine, gold))
+            check(mine == gold, f"golden_lr_{tag}.sam: {same}/{len(gold)} records equal "
+                  f"({len(mine)} produced)")
+            check(device != "cuda" or (extd2.band_launches.n > n0
+                                       and extd2.backtrack_launches.n > b0),
+                  f"the LR CLI ({tag}) launched no band or backtrack kernel")
+            out[tag] = {"records": len(gold), "seconds": time.perf_counter() - t0,
+                        "band_launches": extd2.band_launches.n - n0,
+                        "backtrack_launches": extd2.backtrack_launches.n - b0}
+    say("golden_lr", **out, identical=True, card=card)
+    return out
+
+
+def lr_workload(n_reads: int, genome_len: int = GENOME_LEN):
+    """bench.py's gen_lr_reads recipe (bench.py:268-295) on the bench
+    genome, in memory: 1,500-4,000 bp reads at 1% substitutions, half
+    reverse-complemented."""
+    from gdiet_tpu_torch.io.fastx import SeqRecord
+
+    genome = np.random.default_rng(SEED).integers(0, 4, genome_len, dtype=np.int64)
+    rng = np.random.default_rng(SEED + 1)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    reads = []
+    for n in range(n_reads):
+        L = int(rng.integers(1500, 4000))
+        st = int(rng.integers(0, genome_len - L))
+        r = genome[st: st + L].copy()
+        for _ in range(rng.binomial(L, 0.01)):
+            p = int(rng.integers(0, L))
+            r[p] = (r[p] + int(rng.integers(1, 4))) % 4
+        if rng.random() < 0.5:
+            r = 3 - r[::-1]
+        reads.append(SeqRecord(f"h{n}", bases[r].tobytes().decode(), "I" * L))
+    return bases[genome].tobytes().decode(), reads
+
+
+def phase_lr(device, n_timed: int, genome_len: int, card: str, B: int = LR_BATCH) -> dict:
+    """The HiFi path at full size: bench.py's lr_stats options and mapper
+    budgets, batches of B reads, 1 warm-up + n_timed timed through
+    map_stream. Checks: >= 90% of reads mapped, the first reads' SAM equal
+    to the scalar oracle's, band and backtrack kernel launches > 0 and no
+    plain call in the timed window; one batch's per-phase times; one
+    chunk's captured DP inputs through the kernels and the plain versions
+    once more, exact."""
+    import torch
+
+    from gdiet_tpu_torch import config
+    from gdiet_tpu_torch.index import build_index
+    from gdiet_tpu_torch.ops import dp_band, extd2
+    from gdiet_tpu_torch.oracle import longread as olr
+    from gdiet_tpu_torch.pipeline import device_step
+    from gdiet_tpu_torch.pipeline.longread import LongReadMapper
+
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    genome, reads = lr_workload(B * (n_timed + 1), genome_len)
+    io_, mo = config.options_for(
+        "map-hifi", variant="lr", pattern="10", k=19, w=19, max_seeds=0.2, bw=500,
+        vt_dis=650, vt_nb_loc=5, vt_df1=0.0106, vt_df2=0.2, min_dp_max=200,
+        vt_cov=0.04, vt_f=0.04)
+    mo.flag |= config.MM_F_OUT_SAM | config.MM_F_CIGAR  # -a
+    mi = build_index([("chr1", genome)], io_, device)
+    mapper = LongReadMapper(mi, mo, max_read_len=4096, seed_budget=512,
+                            shift_seed_budget=128, hit_budget=2048, vote_budget=512,
+                            device=device)
+    batches = [reads[i * B:(i + 1) * B] for i in range(n_timed + 1)]
+
+    # ---- the LR path: counts reset just before, read just after ----
+    counts = (extd2.band_launches, extd2.backtrack_launches, extd2.launches,
+              dp_band.calls, device_step.backtrack_calls)
+    results = list(mapper.map_stream(iter(batches[:1])))  # warm-up batch
+    for c in counts:
+        c.reset()
+    t0 = time.perf_counter()
+    results += list(mapper.map_stream(iter(batches[1:])))
+    sync()
+    wall = time.perf_counter() - t0
+    band_n, bt_n, full_n, plain_n, plain_bt_n = (c.n for c in counts)
+    if cuda:
+        check(band_n > 0 and bt_n > 0,
+              f"the LR path launched {band_n} band and {bt_n} backtrack kernels")
+        check(plain_n == 0 and plain_bt_n == 0,
+              f"the LR path called the plain banded DP {plain_n} and the plain "
+              f"backtrack {plain_bt_n} times")
+    regs = [r for batch in results for r in batch]
+    n_mapped = sum(bool(r) for r in regs)
+    check(n_mapped >= 0.9 * len(reads), f"only {n_mapped}/{len(reads)} reads mapped")
+    mine = [l for rec, rg in zip(reads[:LR_ORACLE], regs) for l in mapper.regs_to_sam_lines(rec, rg)]
+    oracle = [l for rec in reads[:LR_ORACLE] for l in mapper.regs_to_sam_lines(
+        rec, olr.map_read_lr(mapper.mi.oracle_view(), rec.seq, mo, mapper.mid_occ, rec.name))]
+    check(mine == oracle, "SAM of the first reads differs from the scalar oracle's")
+
+    # ---- per-phase times of one batch (a device sync at each boundary) ----
+    acc: dict = {}
+    last = [0.0]
+
+    def mark(name):
+        sync()
+        now = time.perf_counter()
+        acc[name] = acc.get(name, 0.0) + (now - last[0]) * 1e3
+        last[0] = now
+
+    seen = []
+    launch = extd2.extd2_batch
+
+    def spy(*args, **kw):
+        seen.append((args, kw))
+        return launch(*args, **kw)
+
+    mapper.mark = mark
+    extd2.extd2_batch = spy
+    try:
+        sync()
+        last[0] = time.perf_counter()
+        mapper.map_batch(batches[1])
+    finally:
+        mapper.mark = None
+        extd2.extd2_batch = launch
+
+    # ---- the kernels on the DP inputs the mapper gives them: the
+    # smallest windowed bucket of that batch ----
+    windowed = [(a, kw) for a, kw in seen if dp_band.band_shape(
+        a[5], kw["Lt"], kw["band_budget"], kw["unroll"])[2] is not None]
+    check(bool(windowed), "the LR batch made no windowed DP call")
+    (q, t, ln, bd, params, L), kw = min(windowed, key=lambda c: c[0][5])
+    Lt, bb, U, tl = kw["Lt"], kw["band_budget"], kw["unroll"], kw["tlens"]
+    got = extd2.extd2_batch(q, t, ln, bd, params, L, tlens=tl, Lt=Lt, band_budget=bb, unroll=U)
+    ref = dp_band.extd2_band(q, t, ln, bd, params, L, tl, Lt, bb, U)
+    path_err = check_equal(got, ref, DP_OUTPUTS,
+                           "the LR path's DP inputs")
+    path_bt_err = check_equal(
+        extd2.backtrack_band(got[1], ln, tl, bd, L, Lt, band_budget=bb, unroll=U),
+        device_step.backtrack_antidiag(got[1], ln, bd, L, tlens=tl, Lt=Lt,
+                                       band_budget=bb, unroll=U),
+        BT_OUTPUTS, "the LR path's backtrack")
+    res = {"reads": len(reads), "timed_reads": B * n_timed, "batch": B,
+           "reads_per_s": B * n_timed / wall, "timed_wall_s": wall,
+           "fallback_reads": mapper.stats["fallback_reads"],
+           "host_dp_segments": mapper.stats["host_dp_segments"],
+           "mapped_reads": n_mapped, "oracle_reads_equal": LR_ORACLE,
+           "band_launches": band_n, "backtrack_launches": bt_n,
+           "full_width_launches": full_n, "plain_band_calls": plain_n,
+           "plain_backtrack_calls": plain_bt_n,
+           "phase_ms": acc, "dp_calls_in_batch": len(seen),
+           "step_dp": {"Lmax": L, "Lt": Lt, "rows": int(q.shape[0]),
+                       "live_rows": int((ln > 0).sum()), "max_abs_err": path_err,
+                       "backtrack_max_abs_err": path_bt_err},
+           "card": card}
+    say("lr", **res)
     return res
 
 
@@ -670,18 +1041,40 @@ def main() -> int:
     m = phase_main("cuda", BENCH_B, N_TIMED, GENOME_LEN, card)
     phase_golden_pe(card)
     pe = phase_pe("cuda", PE_PAIRS, PE_TIMED, GENOME_LEN, card)
+    kb = phase_kernel_band("cuda", card)
+    phase_golden_lr(card)
+    lr = phase_lr("cuda", LR_TIMED, GENOME_LEN, card)
     src = "gdiet_tpu_torch/csrc/"
+    hifi = kb["runs"][0]  # band 500: the HiFi workload's budget
+    bound_keys = ("bound_ms", "bound_by")
     print(json.dumps({"kernels": [
         {"name": "extd2", "route": "cuda", "source": src + "extd2.cu",
          "replaces": "gdiet_tpu/ops/dp_pallas.py:170",
          "launches": m["extd2_launches"], "max_abs_err": k["max_abs_err"],
-         "ms": k["kernel_ms"], "plain_ms": k["plain_ms"]},
+         "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
+         **{x: k[x] for x in bound_keys}, "library_ms": None},
+        {"name": "extd2_band", "route": "cuda", "source": src + "extd2_band.cu",
+         "replaces": "gdiet_tpu/ops/dp_pallas.py:170",
+         "launches": lr["band_launches"],
+         "max_abs_err": max([r["max_abs_err"] for r in kb["runs"]]
+                            + [lr["step_dp"]["max_abs_err"]]),
+         "ms": hifi["kernel_ms"], "plain_ms": hifi["plain_ms"],
+         **{x: hifi[x] for x in bound_keys}, "library_ms": None},
         {"name": "extd2_fold", "route": "cuda", "source": src + "extd2_fold.cu",
          "replaces": "gdiet_tpu/ops/dp_pallas.py:419",
          "launches": pe["extd2_fold_launches"],
          "max_abs_err": max(kf["max_abs_err"], kf_pe["max_abs_err"],
                             pe["step_dp_max_abs_err"]),
-         "ms": kf["kernel_ms"], "plain_ms": kf["plain_ms"]}]}), flush=True)
+         "ms": kf["kernel_ms"], "plain_ms": kf["plain_ms"],
+         **{x: kf[x] for x in bound_keys}, "library_ms": None},
+        {"name": "backtrack_band", "route": "cuda", "source": src + "backtrack_band.cu",
+         "replaces": "gdiet_tpu/pipeline/device_step.py:452",
+         "launches": lr["backtrack_launches"],
+         "max_abs_err": max([r["backtrack"]["max_abs_err"] for r in kb["runs"]]
+                            + [lr["step_dp"]["backtrack_max_abs_err"]]),
+         "ms": hifi["backtrack"]["kernel_ms"], "plain_ms": hifi["backtrack"]["plain_ms"],
+         **{x: hifi["backtrack"][x] for x in bound_keys}, "library_ms": None},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -19,7 +19,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from gdiet_tpu_torch import _host, u64
+from gdiet_tpu_torch import config, native, pattern as pat, u64
+from gdiet_tpu_torch.index.cuckoo import build_cuckoo
+from gdiet_tpu_torch.oracle.sketch import seq_to_code
 from gdiet_tpu_torch.ops.sketch import sketch_emit_build
 
 CHUNK = 1 << 14  # diet positions per row
@@ -107,6 +109,20 @@ class TorchIndex:
         frag = self.codes[off + ln - en : off + ln - st][::-1]
         return np.where(frag < 4, 3 - frag, frag).astype(np.uint8)
 
+    def oracle_view(self):
+        """The index as the scalar oracle reads it (w, k, pattern, names,
+        lengths as Python ints, get, getseq), made once."""
+        if "oracle" not in self._dev:
+            mi = self
+
+            class _View:
+                w, k, pattern = mi.w, mi.k, mi.pattern
+                names, lengths = mi.names, [int(x) for x in mi.lengths]
+                get, getseq = staticmethod(mi.get), staticmethod(mi.getseq)
+
+            self._dev["oracle"] = _View()
+        return self._dev["oracle"]
+
     def cal_max_occ(self, f: float) -> int:
         """mm_idx_cal_max_occ (index.c:190-210)."""
         if f <= 0.0 or len(self.keys) == 0:
@@ -133,7 +149,7 @@ class TorchIndex:
         gathers its bucket's 8 words directly. Returns (table [2*NB*8]
         int64 bit patterns, c1, c2, NB)."""
         if "cuckoo_kv" not in self._dev:
-            tk, tv, c1, c2, nb = _host.cuckoo.build_cuckoo(
+            tk, tv, c1, c2, nb = build_cuckoo(
                 self.keys, lookup_vals(self.starts))
             kv = np.concatenate(
                 [np.asarray(tk).reshape(-1, 4), np.asarray(tv).reshape(-1, 4)],
@@ -212,7 +228,6 @@ def _sketch_sequence(codes: np.ndarray, k: int, w: int, pattern: str,
     synchronous call per group). The true sequence end needs the strict
     final-flush rule and runs as its own row; each row keeps only the
     minimizers it owns. Returns (keys, ys) numpy uint64, unordered."""
-    pat = _host.pattern
     dcodes = pat.diet_codes(codes, pattern, 0)
     D = len(dcodes)
     if D == 0:
@@ -269,9 +284,8 @@ def build_index(seqs, io, device) -> TorchIndex:
     """mm_idx_gen analog: sketch every sequence on ``device``, then build
     the CSR arrays on the host (gdiet_tpu/index/build.py:463-541).
     ``seqs`` is an iterable of (name, seq) or a dict."""
-    native = _host.require_native()
-    seq_to_code = _host.oracle_sketch.seq_to_code
-    no_seq = bool(io.flag & _host.config.MM_I_NO_SEQ)
+    native.require_native()
+    no_seq = bool(io.flag & config.MM_I_NO_SEQ)
     items = seqs.items() if isinstance(seqs, dict) else seqs
     names, lengths, offsets, codes_all, all_keys, all_ys = [], [], [], [], [], []
     off = 0

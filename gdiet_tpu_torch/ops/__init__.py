@@ -1,4 +1,5 @@
-"""Device compute of the port: sketch, banded DP (plain torch + CUDA)."""
+"""Device compute of the port: sketch, banded DP and backtrack (plain
+torch + CUDA), and the host-side SDUST mask."""
 
 
 class LaunchCount:

@@ -30,8 +30,8 @@ import torch
 from gdiet_tpu_torch.ops import LaunchCount
 from gdiet_tpu_torch.ops import dp
 from gdiet_tpu_torch.ops.dp import boundary_u, round_up
+from gdiet_tpu_torch.ops.dp_band import DP_UNROLL, window_geometry
 
-DP_UNROLL = 4  # wavefronts per Pallas grid step (rounds H)
 FOLD_GAP = 32  # lane gap between the two resident half-diamonds
 FOLD_PASSES = 16  # target candidates per kernel row
 
@@ -48,14 +48,6 @@ def fold_geometry(Lmax: int, Lt: int | None = None, unroll: int = DP_UNROLL):
     T = round_up(Lt + FOLD_GAP + 16, 128)
     H = round_up(max(Lmax, (Lmax + Lt) // 2), max(unroll, 8))
     return H, T, Tn
-
-
-def window_geometry(band_budget: int, T: int, unroll: int = DP_UNROLL):
-    """Banded-window width for a max bandwidth, None when it would not be
-    narrower than T (dp_pallas.py:121-130). The step folds only when this
-    is None."""
-    WB = round_up(band_budget + 176 + unroll, 128)
-    return WB if WB < T else None
 
 
 def fold_split(N: int, T: int) -> tuple[int, int, int]:

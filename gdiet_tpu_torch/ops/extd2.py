@@ -1,15 +1,21 @@
-"""Wrappers of the Hopper DP kernels ``csrc/extd2.cu`` and
-``csrc/extd2_fold.cu``.
+"""Wrappers of the Hopper kernels in ``csrc/``: the DP (``extd2.cu``,
+``extd2_fold.cu``, ``extd2_band.cu``) and the windowed backtrack
+(``backtrack_band.cu``).
 
-``extd2_batch`` takes the tensors of ``ops/dp.py::extd2_batch``. With
-``fold=False`` it returns what that function returns; with ``fold=True``
-what ``ops/dp_fold.py::extd2_fold`` returns (the raw folded dirs layout),
-mirroring ``extd2_batch_pallas(..., fold=...)``. For CUDA tensors it
-launches the hand-written kernel (built with ``nvcc`` for ``sm_90a`` at
-first use and bound with ctypes); for CPU tensors it runs the plain torch
-version. There is no fallback from one to the other: a CUDA call either
-launches or raises. ``launches`` and ``fold_launches`` count kernel
-launches.
+``extd2_batch`` is the one DP entry point and mirrors
+``extd2_batch_pallas``: it takes the tensors of ``ops/dp.py::extd2_batch``.
+With ``band_budget`` set and a lane window narrower than round128(Lt)
+(``ops/dp_band.py::window_geometry``) it returns what
+``ops/dp_band.py::extd2_band`` returns; with ``fold=True`` what
+``ops/dp_fold.py::extd2_fold`` returns (the raw folded dirs layout);
+otherwise what ``ops/dp.py::extd2_batch`` returns. ``backtrack_band`` walks
+the banded or full-width dirs of a long-read bucket.
+
+For CUDA tensors each launches its hand-written kernel (built with ``nvcc``
+for ``sm_90a`` at first use and bound with ctypes); for CPU tensors it runs
+the plain torch version. There is no fallback from one to the other: a CUDA
+call either launches or raises. ``launches``, ``fold_launches``,
+``band_launches`` and ``backtrack_launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -25,17 +31,20 @@ import time
 import torch
 
 from gdiet_tpu_torch.ops import LaunchCount
-from gdiet_tpu_torch.ops import dp, dp_fold
+from gdiet_tpu_torch.ops import dp, dp_band, dp_fold
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-KERNELS = ("extd2", "extd2_fold")  # one shared library per csrc/<name>.cu
+# one shared library per csrc/<name>.cu
+KERNELS = ("extd2", "extd2_fold", "extd2_band", "backtrack_band")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 launches = LaunchCount()
 fold_launches = LaunchCount()
+band_launches = LaunchCount()
+backtrack_launches = LaunchCount()
 _libs: dict = {}
 
 
@@ -110,22 +119,39 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"extd2: {name} is not contiguous")
 
 
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
-                Lt: int | None = None, fold: bool = False):
+                Lt: int | None = None, fold: bool = False,
+                band_budget: int | None = None, unroll: int = dp_band.DP_UNROLL):
     """Banded dual affine-gap extension of N (query, target) windows.
 
     query [N, Lmax] u8, target [N, Lt] u8, lens/band/tlens [N] i32 (qlen <=
-    Lmax, tlen <= Lt). ``fold=False``: (score [N] i32, dirs [N, Lmax+Lt-1,
-    round16(Lt)] u8, offs, off_ends [N, R] i32) as ops/dp.py returns them.
+    Lmax, tlen <= Lt). With the lane window engaged (``band_budget`` set
+    and ``window_geometry(band_budget, round128(Lt), unroll)`` not None):
+    (score [N] i32, dirs [N, R, WB] u8, offs, off_ends [N, R] i32) as
+    ops/dp_band.py returns them. Else ``fold=False``: (score, dirs [N,
+    Lmax+Lt-1, round16(Lt)], offs, off_ends) as ops/dp.py returns them;
     ``fold=True``: (score [N], dirs [(C+1)*H, Nrows, T] u8, offs, off_ends
-    [N, 2H]) as ops/dp_fold.py returns them."""
+    [N, 2H]) as ops/dp_fold.py returns them. The window and the fold
+    exclude each other, as in extd2_batch_pallas."""
+    if Lt is None:
+        Lt = Lmax
+    windowed = (band_budget is not None and dp_band.window_geometry(
+        band_budget, dp.round_up(Lt, 128), unroll) is not None)
+    if windowed and fold:
+        raise ValueError("extd2: the banded lane window and the fold exclude each other")
     if query.device.type == "cpu":
+        if windowed:
+            return dp_band.extd2_band(query, target, lens, band, params, Lmax,
+                                      lens if tlens is None else tlens, Lt,
+                                      band_budget, unroll)
         plain = dp_fold.extd2_fold if fold else dp.extd2_batch
         return plain(query, target, lens, band, params, Lmax, tlens, Lt)
     if query.device.type != "cuda":
         raise ValueError(f"extd2: unsupported device {query.device}")
-    if Lt is None:
-        Lt = Lmax
     N = query.shape[0]
     dev = query.device
     _check("query", query, torch.uint8, (N, Lmax), dev)
@@ -137,6 +163,9 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
     ptrs = (query.data_ptr(), target.data_ptr(), lens.data_ptr(),
             tlens.data_ptr() if tlens is not None else None, band.data_ptr())
     scoring = dp.derive_scoring(params)
+    if windowed:
+        return _extd2_band(query, target, lens, tlens if tlens is not None else lens,
+                           band, scoring, Lmax, Lt, band_budget, unroll)
     if fold:
         H, T, Tn = dp_fold.fold_geometry(Lmax, Lt)
         _, Nrows, C = dp_fold.fold_split(N, T)
@@ -146,10 +175,9 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
                        [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 8
                        + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.gdiet_extd2_fold(*ptrs, score.data_ptr(), dirs.data_ptr(),
                                       N, Lmax, Lt, T, Tn, H, Nrows, C,
-                                      *scoring, stream)
+                                      *scoring, _stream(dev))
         if rc != 0:
             raise RuntimeError(f"extd2_fold kernel launch failed: CUDA error {rc}")
         fold_launches.n += 1
@@ -164,11 +192,80 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
                        [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 5
                        + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.gdiet_extd2(*ptrs, score.data_ptr(), dirs.data_ptr(),
-                                 N, Lmax, Lt, T, R, *scoring, stream)
+                                 N, Lmax, Lt, T, R, *scoring, _stream(dev))
         if rc != 0:
             raise RuntimeError(f"extd2 kernel launch failed: CUDA error {rc}")
         launches.n += 1
     offs, off_ends = dp.band_geometry(lens, tlens, band, R, T)
     return score, dirs, offs, off_ends
+
+
+def _extd2_band(query, target, lens, tlens, band, scoring, Lmax: int, Lt: int,
+                band_budget: int, unroll: int):
+    """Launch ``csrc/extd2_band.cu`` (the checks are extd2_batch's)."""
+    T, R, WB = dp_band.band_shape(Lmax, Lt, band_budget, unroll)
+    N = query.shape[0]
+    dev = query.device
+    score = torch.empty((N,), dtype=torch.int32, device=dev)
+    dirs = torch.empty((N, R, WB), dtype=torch.uint8, device=dev)
+    if N:
+        lib = _library("extd2_band", "gdiet_extd2_band",
+                       [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 6
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        with torch.cuda.device(dev):
+            rc = lib.gdiet_extd2_band(
+                query.data_ptr(), target.data_ptr(), lens.data_ptr(),
+                tlens.data_ptr(), band.data_ptr(), score.data_ptr(),
+                dirs.data_ptr(), N, Lmax, Lt, T, R, WB, band_budget, unroll,
+                *scoring, _stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"extd2_band kernel launch failed: CUDA error {rc}")
+        band_launches.n += 1
+    offs, off_ends = dp.band_geometry(lens, tlens, band, R, T)
+    return score, dirs, offs, off_ends
+
+
+def backtrack_band(dirs, lens, tlens, band, Lmax: int, Lt: int,
+                   band_budget: int | None = None, unroll: int = dp_band.DP_UNROLL):
+    """Backtrack of a long-read bucket's dirs: the windowed layout of
+    ``extd2_band`` when ``band_budget``'s window engages at (Lt, unroll),
+    else the full-width layout of ``extd2``. Returns (ops [N, Rpad] u8,
+    fin_i [N] i32, fin_j [N] i32) as
+    ``pipeline/device_step.py::backtrack_antidiag`` does, which is what
+    CPU tensors run; CUDA tensors launch ``csrc/backtrack_band.cu``."""
+    if dirs.device.type == "cpu":
+        from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
+
+        return backtrack_antidiag(dirs, lens, band, Lmax, tlens=tlens, Lt=Lt,
+                                  band_budget=band_budget, unroll=unroll)
+    if dirs.device.type != "cuda":
+        raise ValueError(f"backtrack_band: unsupported device {dirs.device}")
+    N, R, Wd = dirs.shape
+    dev = dirs.device
+    T = dp.round_up(Lt, 128)
+    WB = (dp_band.window_geometry(band_budget, T, unroll)
+          if band_budget is not None else None)
+    if WB is not None and WB != Wd:
+        raise ValueError(f"backtrack_band: dirs are {Wd} lanes wide, the window {WB}")
+    _check("dirs", dirs, torch.uint8, (N, R, Wd), dev)
+    for name, t in (("lens", lens), ("tlens", tlens), ("band", band)):
+        _check(name, t, torch.int32, (N,), dev)
+    Rpad = dp.round_up(R, 8)
+    ops = torch.empty((N, Rpad), dtype=torch.uint8, device=dev)
+    fin_i = torch.empty((N,), dtype=torch.int32, device=dev)
+    fin_j = torch.empty((N,), dtype=torch.int32, device=dev)
+    if N:
+        lib = _library("backtrack_band", "gdiet_backtrack_band",
+                       [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 6
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        with torch.cuda.device(dev):
+            rc = lib.gdiet_backtrack_band(
+                dirs.data_ptr(), lens.data_ptr(), tlens.data_ptr(),
+                band.data_ptr(), ops.data_ptr(), fin_i.data_ptr(),
+                fin_j.data_ptr(), N, R, Wd, T, Rpad, WB or 0,
+                band_budget or 0, unroll, _stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"backtrack_band kernel launch failed: CUDA error {rc}")
+        backtrack_launches.n += 1
+    return ops, fin_i, fin_j

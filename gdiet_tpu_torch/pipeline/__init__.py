@@ -1,1 +1,2 @@
-"""Short-read pipeline of the port: fused step and mapper."""
+"""Mapping pipelines of the port: the short-read fused step and mapper,
+the long-read front and mapper."""

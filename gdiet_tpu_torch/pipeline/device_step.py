@@ -23,9 +23,13 @@ gather workarounds (one-hot matmul selects, chunk-row window gathers) are
 plain gathers here, with indices clamped explicitly where JAX clamps
 silently. The vote scan and the backtrack are plain torch loops.
 
+``backtrack_antidiag`` also reads the banded-window dirs of the long-read
+buckets (``ops/dp_band.py``); ``collect_hits`` is the long-read front's too
+(``pipeline/lr_step.py``).
+
 Not ported yet (ROADMAP): the sharded ``ref_axis`` path, the bisect probe,
-the banded lane window, ``fuse_out_device`` (a TPU-link transfer trick) and
-the five-stage re-run profiler.
+``fuse_out_device`` (a TPU-link transfer trick) and the five-stage re-run
+profiler.
 """
 
 from __future__ import annotations
@@ -35,15 +39,18 @@ from dataclasses import dataclass, replace as dataclass_replace
 import numpy as np
 import torch
 
-from gdiet_tpu_torch import _host, u64
-from gdiet_tpu_torch.ops import extd2
+from gdiet_tpu_torch import config, pattern, u64
+from gdiet_tpu_torch.ops import LaunchCount, extd2
 from gdiet_tpu_torch.ops.dp import CIGAR_DEL, CIGAR_INS, CIGAR_MATCH
-from gdiet_tpu_torch.ops.dp_fold import FOLD_GAP, fold_geometry, window_geometry
+from gdiet_tpu_torch.ops.dp_band import DP_UNROLL, window_base, window_geometry
+from gdiet_tpu_torch.ops.dp_fold import FOLD_GAP, fold_geometry
 from gdiet_tpu_torch.ops.sketch import sketch_emit
 from gdiet_tpu_torch.u64 import ORD_MAX, U32, U64_MAX, srl
 
 I64 = torch.int64
 I32 = torch.int32
+
+backtrack_calls = LaunchCount()
 
 
 @dataclass(frozen=True)
@@ -79,11 +86,12 @@ class StepConfig:
     cuckoo_nb: int = 0
     dp_frac: float = 1.0
     dp_fold: bool = False  # folded DP layout (TorchFusedMapper resolves it)
+    vote_budget: int = 0  # >0: the LR front compacts the vote stream to it
 
     @classmethod
     def from_options(cls, mi, mo, mid_occ: int, Lmax: int, S: int, S2: int,
                      A: int) -> "StepConfig":
-        frag = bool(mo.flag & _host.config.MM_F_FRAG_MODE)
+        frag = bool(mo.flag & config.MM_F_FRAG_MODE)
         max_nb = (800 if mo.max_frag_len == 0 else mo.max_frag_len) if frag else U32
         return cls(
             k=mi.k, w=mi.w, pattern=mo.pattern, Lmax=Lmax, S=S, S2=S2, A=A,
@@ -114,8 +122,7 @@ def _max_safe_subs(params) -> int:
 
 def _pattern_tables(cfg: StepConfig):
     """Per-shift gather maps [W, Dmax] + prefix-ones table [W+1]."""
-    pat = _host.pattern
-    maps = [pat.gather_map(cfg.Lmax, cfg.pattern, s) for s in range(len(cfg.pattern))]
+    maps = [pattern.gather_map(cfg.Lmax, cfg.pattern, s) for s in range(len(cfg.pattern))]
     Dmax = max(len(m) for m in maps)
     W = len(cfg.pattern)
     arr = np.full((W, Dmax), cfg.Lmax - 1, np.int64)
@@ -454,17 +461,22 @@ def window_rows_packed(packed, nmask, fstart, L: int):
 
 
 def backtrack_antidiag(dirs, dp_lens, band, Lmax: int, tlens=None,
-                       Lt: int | None = None, fold: bool = False):
+                       Lt: int | None = None, fold: bool = False,
+                       band_budget: int | None = None, unroll: int | None = None):
     """Antidiagonal-synchronous ksw_backtrack (ksw2.h:131-163), as
-    device_step.py:452-585 without the lane window. Ops stream back to
-    front, one column per antidiagonal r = Rpad-1 .. 0 (R padded to a
-    multiple of 8), 255 on idle columns.
+    device_step.py:452-585. Ops stream back to front, one column per
+    antidiagonal r = Rpad-1 .. 0 (R padded to a multiple of 8), 255 on idle
+    columns.
 
-    ``fold=False`` reads the dirs layout of ops/dp.py, [N, R, Wd].
-    ``fold=True`` reads the raw folded layout of ops/dp_fold.py,
-    [(C+1)*H, Nrows, Wd]: candidate n = c*Nrows + k takes wavefront r from
-    slice c*H + r, at lane i + FOLD_GAP for the second half (r >= H).
+    ``fold=False`` reads the dirs [N, R, Wd] of ops/dp.py, or, when
+    ``band_budget``'s lane window engages at (round128(Lt), ``unroll``),
+    the windowed dirs of ops/dp_band.py: lane i of wavefront r at column
+    i - window_base(r // unroll * unroll). ``fold=True`` reads the raw
+    folded layout of ops/dp_fold.py, [(C+1)*H, Nrows, Wd]: candidate n =
+    c*Nrows + k takes wavefront r from slice c*H + r, at lane i + FOLD_GAP
+    for the second half (r >= H). ``calls`` counts the invocations.
     Returns (ops [N, Rpad] u8, fin_i [N] i32, fin_j [N] i32)."""
+    backtrack_calls.n += 1
     dev = dirs.device
     N = dp_lens.shape[0]
     if Lt is None:
@@ -483,9 +495,13 @@ def backtrack_antidiag(dirs, dp_lens, band, Lmax: int, tlens=None,
     else:
         _, R, Wd = dirs.shape
         T = -(-Lt // 128) * 128
+        U_ = unroll or DP_UNROLL
+        WB = (window_geometry(band_budget, T, U_)
+              if band_budget is not None else None)
 
         def dir_bytes(r, i):
-            col = torch.clamp(i, 0, Wd - 1).to(I64)
+            lo = 0 if WB is None else window_base(r // U_ * U_, band_budget, T, WB)
+            col = torch.clamp(i - lo, 0, Wd - 1).to(I64)
             return torch.gather(dirs[:, r, :], 1, col[:, None])[:, 0]
     BT_U = 8
     Rpad = -(-R // BT_U) * BT_U
@@ -497,7 +513,10 @@ def backtrack_antidiag(dirs, dp_lens, band, Lmax: int, tlens=None,
     state = torch.zeros((N,), dtype=I32, device=dev)
     active = (lens > 0) & (tl > 0)
     ops = torch.full((N, Rpad), 255, dtype=torch.uint8, device=dev)
-    for r in range(R - 1, -1, -1):
+    # no walker starts above antidiagonal tlen+qlen-2: the columns above
+    # the batch's highest start stay idle (255)
+    r_top = min(R - 1, int((tl + lens - 2).max())) if N else -1
+    for r in range(r_top, -1, -1):
         act = active & (i + j == r)
         st0 = torch.maximum(torch.clamp(r - lens + 1, min=0), (r - w + 1) >> 1)
         en0 = torch.minimum(torch.clamp(tl - 1, max=r), (r + w) >> 1)
@@ -729,7 +748,7 @@ class TorchFusedMapper:
                  dp_fold: bool = False):
         self.device = torch.device(device if device is not None else index.device)
         mid_occ = index.derive_mid_occ(mo)
-        dmax = _host.pattern.diet_length(Lmax, mo.pattern, 0)
+        dmax = pattern.diet_length(Lmax, mo.pattern, 0)
         cfg = StepConfig.from_options(index, mo, mid_occ, Lmax, min(S, dmax),
                                       min(S2, dmax), A)
         tkv, c1, c2, nb = index.device_cuckoo_kv()

@@ -1,0 +1,412 @@
+"""Long-read mapper: device front + banded DP on the device + exact host
+finish.
+
+Port of ``gdiet_tpu/pipeline/longread.py::LongReadMapper``. The device
+front (``pipeline/lr_step.py``: shift inference, query sketch, cuckoo
+lookup, hit expansion, round-1 vote, filters and both round-2 votes) runs
+once per batch. The host accepts round-2 candidates, builds the
+concatenation graph and the segment windows (``oracle/longread.py`` on the
+``-t`` pool). Every segment's banded DP runs in length buckets on the
+device: ``ops/extd2.py::extd2_batch`` with the band budget and an unroll of
+8 (the banded lane window, ``csrc/extd2_band.cu`` on the card) and
+``backtrack_band`` (``csrc/backtrack_band.cu``), one packed u8 result per
+chunk. The host run-length-encodes the ops (``native.rle_ops``) and
+finishes each read (``finalize_read``).
+
+The device is explicit: on the card every bucket runs the kernels, on the
+CPU their plain versions (``gdiet_tpu`` runs the scalar ``oal.extd2`` off
+the TPU instead). Segments beyond the largest bucket take ``oal.extd2`` on
+the host, the reference's own routing (``stats["host_dp_segments"]``).
+Reads outside the fixed-shape envelope map through the scalar oracle
+``olr.map_read_lr`` (``stats["fallback_reads"]``). There is no mesh.
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace as dataclass_replace
+
+import numpy as np
+import torch
+
+from gdiet_tpu_torch import config, debug, native, pattern
+from gdiet_tpu_torch.io import sam as samio
+from gdiet_tpu_torch.ops import extd2
+from gdiet_tpu_torch.ops.dp import cigars_from_ops
+from gdiet_tpu_torch.ops.dp_band import LR_UNROLL, window_geometry
+from gdiet_tpu_torch.oracle import align as oal
+from gdiet_tpu_torch.oracle import longread as olr
+from gdiet_tpu_torch.pipeline.device_step import (StepConfig, _pattern_tables,
+                                                  pack_ops, unpack_ops)
+from gdiet_tpu_torch.pipeline.lr_step import lr_front, unpack_lr_meta
+from gdiet_tpu_torch.utils.profile import PROFILE, Stage
+
+F32 = np.float32
+U32 = 0xFFFFFFFF
+
+# (Lq, Lt) DP buckets; segments beyond the largest take the host DP
+DP_BUCKETS = [(512, 1024), (2048, 3072), (4096, 5120), (8192, 9216),
+              (16384, 17408), (32768, 34048)]
+
+
+class LongReadMapper:
+    """Batched long-read mapper on ``device`` with oracle-exact host
+    fallback (longread.py:43-596)."""
+
+    def __init__(self, index, mo, max_read_len: int = 8192,
+                 seed_budget: int = 2048, shift_seed_budget: int = 256,
+                 hit_budget: int = 8192, vote_budget: int = 0,
+                 n_threads: int = 1, device=None):
+        native.require_native()
+        self.mi = index
+        self.mo = mo
+        self.device = torch.device(device if device is not None else index.device)
+        self.mid_occ = index.derive_mid_occ(mo)
+        self.Lmax = max_read_len
+        # -t analog (kt_for): prepare_segments / finalize_read / oracle
+        # fallbacks release the GIL inside numpy and C
+        self.n_threads = max(1, n_threads)
+        self._pool = None
+        self.stats = {"fallback_reads": 0, "n_reads": 0, "host_dp_segments": 0}
+        # mark(name), when set, is called at each phase boundary of a batch
+        # (front, host_mid, dp, backtrack, d2h, host_finish)
+        self.mark = None
+
+        dmax = pattern.diet_length(max_read_len, mo.pattern, 0)
+        cfg = StepConfig.from_options(index, mo, self.mid_occ, max_read_len,
+                                      min(seed_budget, dmax),
+                                      min(shift_seed_budget, dmax), hit_budget)
+        tkv, c1, c2, nb = index.device_cuckoo_kv()
+        # LR voting keeps vt_nb_loc candidates (map.c:1310)
+        self.cfg = dataclass_replace(cfg, K=mo.vt_nb_loc, vote_budget=vote_budget,
+                                     cuckoo_c1=c1, cuckoo_c2=c2, cuckoo_nb=nb)
+        maps, pref, _ = _pattern_tables(self.cfg)
+        dev = self.device
+        self.tables = {"cuckoo": tkv.to(dev),
+                       "positions": index.device_positions().to(dev),
+                       "maps": torch.from_numpy(maps).to(dev),
+                       "pref": torch.from_numpy(pref).to(dev)}
+
+    def _mark(self, name: str) -> None:
+        if self.mark is not None:
+            self.mark(name)
+
+    # ------------------------------------------------------------------
+    def _map_parallel(self, fn, items):
+        """Run ``fn`` over items on the -t pool (order-preserving)."""
+        if self.n_threads > 1 and len(items) > 1:
+            if self._pool is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                self._pool = ThreadPoolExecutor(self.n_threads)
+            return list(self._pool.map(fn, items))
+        return [fn(x) for x in items]
+
+    # ------------------------------------------------------------------
+    def map_batch(self, reads: list) -> list:
+        return self._tail_batch(self._mid_batch(self._start_batch(reads)))
+
+    def map_stream(self, batches):
+        """Two-deep pipeline: while the host votes and prepares batch k,
+        the device computes batch k+1's front; while the device runs batch
+        k's segment DP, the host finishes batch k-1. Stage order per
+        iteration: start(k+1), mid(k), tail(k-1)."""
+        started = None
+        midded = None
+        for batch in batches:
+            new = self._start_batch(batch)
+            if started is not None:
+                m = self._mid_batch(started)
+                if midded is not None:
+                    yield self._tail_batch(midded)
+                midded = m
+            started = new
+        if started is not None:
+            m = self._mid_batch(started)
+            if midded is not None:
+                yield self._tail_batch(midded)
+            midded = m
+        if midded is not None:
+            yield self._tail_batch(midded)
+
+    def regs_to_sam_lines(self, rec, regs, rep_len: int = 0) -> list:
+        """SAM record lines of one read (format.c:412-602 via io/sam.py)."""
+        mo = self.mo
+        if not regs:
+            return [samio.sam_record(rec.name, rec.seq, rec.qual, None, [],
+                                     self.mi.names, mo.flag, rep_len)]
+        return [samio.sam_record(rec.name, rec.seq, rec.qual, r, regs,
+                                 self.mi.names, mo.flag, rep_len, index=self.mi)
+                for r in regs
+                if not ((mo.flag & config.MM_F_NO_PRINT_2ND) and r.id != r.parent)]
+
+    def _start_batch(self, reads):
+        B = len(reads)
+        results: list = [None] * B
+        lens = np.array([r.l_seq for r in reads], np.int64)
+        if self.mo.sdust_thres > 0 or debug.enabled():
+            host_only = np.ones(B, bool)
+        else:
+            host_only = (lens > self.Lmax) | (lens == 0)
+        device_idx = np.where(~host_only)[0]
+        front = None
+        if len(device_idx):
+            front = self._dispatch_front([reads[i] for i in device_idx],
+                                         lens[device_idx])
+        return reads, results, lens, host_only, device_idx, front
+
+    def _mid_batch(self, st):
+        """Host vote + round-2 + job prep; ends with the segment DP chunks
+        enqueued on the device."""
+        reads, results, lens, host_only, device_idx, front = st
+        dev = None
+        if len(device_idx):
+            dev = self._map_device_mid([reads[i] for i in device_idx],
+                                       lens[device_idx], results, device_idx,
+                                       front)
+        return reads, results, lens, host_only, device_idx, dev
+
+    def _tail_batch(self, st):
+        """Fetch the DP results, finish device reads, run host fallbacks."""
+        reads, results, lens, host_only, device_idx, dev = st
+        if dev is not None:
+            fb = self._map_device_tail(dev)
+            host_only[device_idx[fb]] = True
+        self.stats["fallback_reads"] += int(host_only.sum())
+        self.stats["n_reads"] += len(reads)
+        fb_idx = [int(i) for i in np.where(host_only)[0]]
+        fb_res = self._map_parallel(
+            lambda i: olr.map_read_lr(self.mi.oracle_view(), reads[i].seq, self.mo,
+                                      self.mid_occ, reads[i].name),
+            fb_idx)
+        for i, r in zip(fb_idx, fb_res):
+            results[i] = r
+        return results
+
+    # ------------------------------------------------------------------
+    def _dispatch_front(self, reads, lens_np):
+        """Encode and enqueue the device front."""
+        mo = self.mo
+        codes, _ = native.encode_batch([r.seq for r in reads], self.Lmax)
+        cov_thr = np.array([int(F32(n) * F32(mo.vt_cov)) for n in lens_np], np.int32)
+        dev = self.device
+        meta = lr_front(
+            torch.from_numpy(codes).to(dev), torch.from_numpy(lens_np).to(dev),
+            self.tables, torch.from_numpy(cov_thr).to(dev),
+            torch.full((len(reads),), int(mo.vt_dis), dtype=torch.int64, device=dev),
+            self.cfg, k=self.mi.k, vt_df1=float(mo.vt_df1), vt_f=float(mo.vt_f),
+            bw=int(mo.bw))
+        self._mark("front")
+        return codes, meta
+
+    def _map_device_mid(self, reads, lens_np, results, result_idx, front):
+        mo, mi = self.mo, self.mi
+        B = len(reads)
+        codes, meta_dev = front
+        with PROFILE.stage(Stage.DEVICE_FUSED):
+            meta = unpack_lr_meta(meta_dev.cpu().numpy(), self.cfg.K)
+        fallback = meta["fallback"].copy()
+        lo1, hi1, lo2, hi2 = meta["lo1"], meta["hi1"], meta["lo2"], meta["hi2"]
+
+        # ---- host: rebuild the filtered VtSeqs (filters ran on device) ----
+        per_read: list = [None] * B
+        for i in range(B):
+            if fallback[i]:
+                continue
+            per_read[i] = [
+                olr.VtSeq(
+                    chrom_id=int(meta["k_chrom"][i, c]),
+                    first_target_loc=int(meta["k_ft"][i, c]),  # signed i32
+                    last_target_loc=(int(meta["k_lt"][i, c]) if meta["k_lt_adj"][i, c]
+                                     else int(meta["k_lt"][i, c]) & U32),
+                    first_query_loc=int(meta["k_fq"][i, c]) & U32,
+                    last_query_loc=int(meta["k_lq"][i, c]),
+                    str=int(meta["k_str"][i, c]),
+                    score=int(meta["k_score"][i, c]),
+                )
+                for c in range(int(meta["kept_len"][i]))
+            ]
+
+        # ---- round-2 accepts (the scans already ran on device) ----
+        if ((hi1 > lo1) | (hi2 > lo2)).any():
+            vt2p = meta["vt2"]
+            for (lo, hi), vt2 in (((lo1, hi1), vt2p[:, :8]), ((lo2, hi2), vt2p[:, 8:])):
+                for i in range(B):
+                    if fallback[i] or not per_read[i] or hi[i] <= lo[i]:
+                        continue
+                    cand = olr.VtSeq(
+                        chrom_id=int(vt2[i, 4]) & U32,
+                        first_target_loc=int(vt2[i, 5]) & U32,
+                        last_target_loc=int(vt2[i, 7]) & U32,
+                        first_query_loc=int(vt2[i, 1]),
+                        last_query_loc=int(vt2[i, 2]),
+                        str=int(vt2[i, 3]),
+                        score=int(vt2[i, 0]),
+                    )
+                    olr.accept_round2(cand, mo, mi.k, per_read[i])
+
+        # ---- host: concat graph + window geometry (on the -t pool) ----
+        all_jobs = []  # (read i, job tuple)
+        strands: list = [None] * B
+        prep_idx = []
+        for i in range(B):
+            if fallback[i] or per_read[i] is None:
+                continue
+            if not per_read[i]:
+                results[result_idx[i]] = []
+                continue
+            prep_idx.append(i)
+
+        def _prep(i):
+            seqs = per_read[i]
+            olr.build_concat_graph(seqs, mo)
+            qlen_sum = int(lens_np[i])
+            qs_for = codes[i, :qlen_sum].astype(np.uint8)
+            qs_rev = (qs_for[::-1] ^ 0x3).astype(np.uint8)
+            jobs = olr.prepare_segments(self.mi.oracle_view(), mo, qs_for, qs_rev,
+                                        qlen_sum, seqs)
+            return (qs_for, qs_rev), jobs
+
+        for i, (strand, jobs) in zip(prep_idx, self._map_parallel(_prep, prep_idx)):
+            strands[i] = strand
+            all_jobs.extend((i, job) for job in jobs)
+        self._mark("host_mid")
+
+        # ---- batched segment DP (bucketed), enqueued on the device ----
+        ezs, pending = self._align_jobs_dispatch(all_jobs, lens_np, fallback)
+        return (results, result_idx, lens_np, fallback, per_read, strands,
+                all_jobs, ezs, pending)
+
+    def _map_device_tail(self, dev):
+        (results, result_idx, lens_np, fallback, per_read, strands,
+         all_jobs, ezs, pending) = dev
+        mo = self.mo
+        self._align_jobs_fetch(ezs, pending)
+        with PROFILE.stage(Stage.HOST_FINISH):
+            by_read: dict = {}
+            for (i, job), ez in zip(all_jobs, ezs):
+                jobs_i, ez_i = by_read.setdefault(i, ([], []))
+                jobs_i.append(job)
+                ez_i.append(ez)
+            fin_idx = [i for i in range(len(lens_np))
+                       if not (fallback[i] or not per_read[i])]
+
+            def _fin(i):
+                jobs, ez_list = by_read.get(i, ([], []))
+                qs_for, qs_rev = strands[i]
+                return olr.finalize_read(self.mi.oracle_view(), mo, qs_for, qs_rev,
+                                         int(lens_np[i]), per_read[i], jobs, ez_list)
+
+            for i, regs in zip(fin_idx, self._map_parallel(_fin, fin_idx)):
+                results[result_idx[i]] = regs
+        self._mark("host_finish")
+        return fallback
+
+    # ------------------------------------------------------------------
+    def _host_extd2(self, qwin, twin):
+        mo = self.mo
+        ez = oal.extd2(qwin, twin, mo.a, mo.b, mo.q, mo.e, mo.q2, mo.e2,
+                       mo.bw, mo.zdrop, mo.end_bonus, oal.KSW_EZ_APPROX_MAX)
+        return ez.score, list(ez.cigar)
+
+    def _align_jobs_dispatch(self, all_jobs, lens_np, fallback):
+        """Per-segment DP (longread.py:439-528): exact-match short-circuit,
+        then length-bucketed chunks on the device; segments beyond the
+        largest bucket take the host DP."""
+        mo = self.mo
+        ezs: list = [None] * len(all_jobs)
+        buckets: dict = {bi: [] for bi in range(len(DP_BUCKETS))}
+        for n, (i, (_s, qwin, twin, exact, qlen)) in enumerate(all_jobs):
+            if fallback[i]:
+                ezs[n] = (oal.NEG_INF, [])
+                continue
+            if exact:
+                ezs[n] = (int(lens_np[i]) * mo.a, [(int(qlen), oal.CIGAR_MATCH)])
+                continue
+            bi = next((b for b, (lq, lt) in enumerate(DP_BUCKETS)
+                       if len(qwin) <= lq and len(twin) <= lt), None)
+            if bi is None:  # beyond the largest bucket (longread.py:465-470)
+                ezs[n] = self._host_extd2(qwin, twin)
+                self.stats["host_dp_segments"] += 1
+            else:
+                buckets[bi].append(n)
+
+        pending = []
+        for bi, members in buckets.items():
+            if not members:
+                continue
+            lq, lt = DP_BUCKETS[bi]
+            # bound the dirs tensor (R x N x Wd bytes) to ~1 GB per call,
+            # Wd the banded window width where it engages
+            T_pad = (lt + 127) // 128 * 128
+            WB = window_geometry(int(mo.bw), T_pad)
+            Wd = WB if WB is not None else T_pad
+            R = lq + lt
+            chunk = 32
+            while chunk * 2 * R * Wd <= (1 << 30):
+                chunk *= 2
+            for c0 in range(0, len(members), chunk):
+                sub = members[c0: c0 + chunk]
+                # power-of-two batch: padded rows have qlen 0 (dead)
+                N = 32
+                while N < len(sub):
+                    N <<= 1
+                Q = np.zeros((N, lq), np.uint8)
+                T = np.zeros((N, lt), np.uint8)
+                qlens = np.zeros(N, np.int32)
+                tlens = np.zeros(N, np.int32)
+                for j, n in enumerate(sub):
+                    _, (_s, qwin, twin, _exact, _q) = all_jobs[n]
+                    Q[j, : len(qwin)] = qwin
+                    T[j, : len(twin)] = twin
+                    qlens[j] = len(qwin)
+                    tlens[j] = len(twin)
+                band = np.full(N, mo.bw, np.int32)
+                pending.append((sub, qlens, self._run_bucket(Q, T, qlens, tlens, band, lq, lt)))
+        return ezs, pending
+
+    def _run_bucket(self, Q, T, qlens, tlens, band, lq: int, lt: int):
+        """DP + backtrack of one chunk on the device: ONE packed u8 result
+        per candidate (score | fin_i | fin_j | 2-bit op stream), as
+        longread.py:555-596 packs it."""
+        dev = self.device
+        q, t, ql, tl, bd = (torch.from_numpy(a).to(dev) for a in (Q, T, qlens, tlens, band))
+        bw = int(self.mo.bw)
+        params = self.cfg.params
+        score, dirs, _, _ = extd2.extd2_batch(q, t, ql, bd, params, lq, tlens=tl,
+                                              Lt=lt, band_budget=bw, unroll=LR_UNROLL)
+        self._mark("dp")
+        ops, fin_i, fin_j = extd2.backtrack_band(dirs, ql, tl, bd, lq, lt,
+                                                 band_budget=bw, unroll=LR_UNROLL)
+        N = ops.shape[0]
+        pad = (-ops.shape[1]) % 4
+        if pad:
+            ops = torch.cat([ops, torch.full((N, pad), 255, dtype=torch.uint8,
+                                             device=dev)], 1)
+
+        def b(x):
+            return x.to(torch.int32).contiguous().view(torch.uint8).reshape(N, 4)
+
+        packed = torch.cat([b(score), b(fin_i), b(fin_j), pack_ops(ops)], 1)
+        self._mark("backtrack")
+        return packed
+
+    def _align_jobs_fetch(self, ezs, pending):
+        """Fetch the DP chunks and run-length-encode their ops on the host,
+        in dispatch order."""
+        for sub, qlens, dev in pending:
+            with PROFILE.stage(Stage.DEVICE_FUSED):  # segment-DP D2H
+                packed = dev.cpu().numpy()
+            self._mark("d2h")
+            score = packed[:, :4].copy().view(np.int32)[:, 0]
+            fin_i = packed[:, 4:8].copy().view(np.int32)[:, 0]
+            fin_j = packed[:, 8:12].copy().view(np.int32)[:, 0]
+            op_rows = unpack_ops(packed[:, 12:])
+            cigs = native.rle_ops(op_rows, fin_i, fin_j, qlens,
+                                  max_runs=max(1024, op_rows.shape[1] // 4))
+            if cigs is None:
+                cigs = cigars_from_ops(op_rows, fin_i, fin_j, qlens)
+            for j, n in enumerate(sub):
+                sc = int(score[j])
+                ezs[n] = (sc, cigs[j] if sc != oal.NEG_INF else [])
+            self._mark("host_finish")
+        return ezs

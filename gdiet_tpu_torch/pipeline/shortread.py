@@ -22,13 +22,16 @@ import time
 import numpy as np
 import torch
 
-from gdiet_tpu_torch import _host
+from gdiet_tpu_torch import config, debug, native
+from gdiet_tpu_torch.io import sam as samio
+from gdiet_tpu_torch.io.fastx import SeqRecord
+from gdiet_tpu_torch.oracle import align as oal
+from gdiet_tpu_torch.oracle import hit as oracle_hit
+from gdiet_tpu_torch.oracle import pipeline as oracle_pipeline
 from gdiet_tpu_torch.ops.dp import cigars_from_ops
 from gdiet_tpu_torch.pipeline.device_step import (TorchFusedMapper,
                                                   unpack_ops, unpack_outputs)
-
-oal = _host.align
-PROFILE, Stage = _host.profile.PROFILE, _host.profile.Stage
+from gdiet_tpu_torch.utils.profile import PROFILE, Stage
 
 
 class ShortReadMapper:
@@ -46,7 +49,7 @@ class ShortReadMapper:
         if profile_stages:
             raise NotImplementedError(
                 "the five-stage profile re-run is not ported yet: see ROADMAP.md")
-        self.native = _host.require_native()
+        self.native = native.require_native()
         self.mi = index
         self.mo = mo
         self.device = torch.device(device if device is not None else index.device)
@@ -55,7 +58,6 @@ class ShortReadMapper:
         self.fused = TorchFusedMapper(
             index, mo, Lmax=max_read_len, S=seed_budget, S2=shift_seed_budget,
             A=hit_budget, dp_frac=dp_frac, dp_fold=dp_fold, device=self.device)
-        self._oracle_index = None
         self._retry_args = (seed_budget, shift_seed_budget, retry_hit_budget)
         self.retry_batch = retry_batch
         self._retry_fused = None
@@ -109,32 +111,11 @@ class ShortReadMapper:
         return out
 
     # ------------------------------------------------------------------
-    def _oracle_mi(self):
-        """The index as the scalar oracle reads it."""
-        if self._oracle_index is None:
-            mi = self.mi
-
-            class _Wrap:
-                w, k, pattern = mi.w, mi.k, mi.pattern
-                names, lengths = mi.names, [int(x) for x in mi.lengths]
-
-                @staticmethod
-                def get(minier):
-                    return mi.get(minier)
-
-                @staticmethod
-                def getseq(rid, st, en, rev=False):
-                    return mi.getseq(rid, st, en, rev)
-
-            self._oracle_index = _Wrap()
-        return self._oracle_index
-
-    # ------------------------------------------------------------------
     def _prepare_and_dispatch(self, reads):
         _t0 = time.perf_counter_ns()
         codes, lens = self.native.encode_batch([r.seq for r in reads], self.Lmax)
         host_only = lens > min(300, self.Lmax)
-        if _host.debug.enabled():  # --print-seeds traces the oracle
+        if debug.enabled():  # --print-seeds traces the oracle
             host_only[:] = True
         if self.mo.sdust_thres > 0:  # -T routing is per read (map.c:45-72)
             host_only |= self.native.sdust_flags(
@@ -244,7 +225,7 @@ class ShortReadMapper:
     def _prepare_pe(self, pairs, n_real: int):
         _t0 = time.perf_counter_ns()
         f0, f1 = self._pe_flips()
-        revcomp = _host.sam.revcomp
+        revcomp = samio.revcomp
         mseqs: list = []
         for r1, r2 in pairs:
             mseqs.append(revcomp(r1.seq) if f0 else r1.seq)
@@ -267,7 +248,6 @@ class ShortReadMapper:
     def _finish_pe(self, state, rep_len: int, fetched) -> bytes:
         pairs, codes, lens, host_only, _, blobs, n_real = state
         mo = self.mo
-        cfgm = _host.config
         meta_np, ops_np = fetched
         f0, f1 = self._pe_flips()
         rn_blob, rn_offs = self._ref_names()
@@ -276,9 +256,9 @@ class ShortReadMapper:
                 meta_np, ops_np, self.fused.cfg.K, self.fused.cfg.Lmax,
                 codes, lens, self.mi.codes, self.mi.seq_offsets, rn_blob, rn_offs,
                 mo.a, mo.b, mo.q, mo.e, mo.min_dp_max,
-                0 if (mo.flag & cfgm.MM_F_NO_PRINT_2ND) else mo.best_n,
-                bool(mo.flag & cfgm.MM_F_NO_PRINT_2ND),
-                bool(mo.flag & cfgm.MM_F_SOFTCLIP), rep_len,
+                0 if (mo.flag & config.MM_F_NO_PRINT_2ND) else mo.best_n,
+                bool(mo.flag & config.MM_F_NO_PRINT_2ND),
+                bool(mo.flag & config.MM_F_SOFTCLIP), rep_len,
                 bool(f0), bool(f1), self._pe_gap(), mo.pe_bonus, blobs=blobs)
         if res is None:
             raise RuntimeError("native pe_finish_batch failed")
@@ -312,19 +292,17 @@ class ShortReadMapper:
         """Exact oracle PE finish for one pair: map both pe_ori-revcomp'd
         ends, mm_pair, flip back, n_seg=2 records (shortread.py:612-659)."""
         mo = self.mo
-        cfgm = _host.config
-        samio = _host.sam
         flips = self._pe_flips()
         recs = list(pair)
         mapped = [
-            _host.fastx.SeqRecord(rec.name, samio.revcomp(rec.seq),
+            SeqRecord(rec.name, samio.revcomp(rec.seq),
                                   rec.qual[::-1] if rec.qual else None, rec.comment)
             if flips[j] else rec
             for j, rec in enumerate(recs)]
-        results = [_host.oracle_pipeline.map_read(
-            self._oracle_mi(), m.seq, mo, self.mid_occ, m.name) for m in mapped]
-        if mo.pe_ori >= 0 and (mo.flag & cfgm.MM_F_CIGAR):
-            _host.oracle_hit.pair(self._pe_gap(), mo.pe_bonus, mo.a * 2 + mo.b, mo.a,
+        results = [oracle_pipeline.map_read(
+            self.mi.oracle_view(), m.seq, mo, self.mid_occ, m.name) for m in mapped]
+        if mo.pe_ori >= 0 and (mo.flag & config.MM_F_CIGAR):
+            oracle_hit.pair(self._pe_gap(), mo.pe_bonus, mo.a * 2 + mo.b, mo.a,
                                   [mapped[0].l_seq, mapped[1].l_seq], results)
         for j in range(2):
             if flips[j]:
@@ -337,7 +315,7 @@ class ShortReadMapper:
             regs, mate = results[j], results[1 - j]
             if regs:
                 for r in regs:
-                    if (mo.flag & cfgm.MM_F_NO_PRINT_2ND) and r.id != r.parent:
+                    if (mo.flag & config.MM_F_NO_PRINT_2ND) and r.id != r.parent:
                         continue
                     lines.append(samio.sam_record(
                         rec.name, rec.seq, rec.qual, r, regs, self.mi.names,
@@ -350,14 +328,13 @@ class ShortReadMapper:
 
     def _oracle_sam(self, rec, rep_len: int) -> bytes:
         """Scalar-oracle mapping + Python SAM formatting for one read."""
-        regs = _host.oracle_pipeline.map_read(
-            self._oracle_mi(), rec.seq, self.mo, self.mid_occ, rec.name)
+        regs = oracle_pipeline.map_read(
+            self.mi.oracle_view(), rec.seq, self.mo, self.mid_occ, rec.name)
         return self._regs_to_sam(rec, regs, rep_len)
 
     def _regs_to_sam(self, rec, regs, rep_len: int) -> bytes:
         mo = self.mo
-        samio = _host.sam
-        no_2nd = mo.flag & _host.config.MM_F_NO_PRINT_2ND
+        no_2nd = mo.flag & config.MM_F_NO_PRINT_2ND
         lines = []
         if regs:
             for r in regs:
@@ -380,7 +357,6 @@ class ShortReadMapper:
     def _finish_sam(self, state, rep_len: int, fetched) -> bytes:
         reads, codes, lens, host_only, device_idx, dev, blobs, n_real = state
         mo = self.mo
-        cfgm = _host.config
         B = len(reads)
         spans: list = [None] * B
         buf = b""
@@ -394,9 +370,9 @@ class ShortReadMapper:
                     codes[di], lens[di], None, None, None,
                     self.mi.codes, self.mi.seq_offsets, rn_blob, rn_offs,
                     mo.a, mo.b, mo.q, mo.e, mo.min_dp_max,
-                    0 if (mo.flag & cfgm.MM_F_NO_PRINT_2ND) else mo.best_n,
-                    bool(mo.flag & cfgm.MM_F_NO_PRINT_2ND),
-                    bool(mo.flag & cfgm.MM_F_SOFTCLIP), rep_len, blobs=blobs)
+                    0 if (mo.flag & config.MM_F_NO_PRINT_2ND) else mo.best_n,
+                    bool(mo.flag & config.MM_F_NO_PRINT_2ND),
+                    bool(mo.flag & config.MM_F_SOFTCLIP), rep_len, blobs=blobs)
             if res is None:
                 raise RuntimeError("native sr_finish_batch failed")
             buf, rec_offs, done = res
@@ -519,9 +495,9 @@ class ShortReadMapper:
             while k > 0 and lst[k].score > lst[k - 1].score:
                 lst[k], lst[k - 1] = lst[k - 1], lst[k]
                 k -= 1
-        max_nb_sec = 0 if (mo.flag & _host.config.MM_F_NO_PRINT_2ND) else mo.best_n
+        max_nb_sec = 0 if (mo.flag & config.MM_F_NO_PRINT_2ND) else mo.best_n
         for i in range(B):
             if not fallback[i] and regs_per_read[i]:
-                _host.oracle_pipeline.set_sam_params(
+                oracle_pipeline.set_sam_params(
                     regs_per_read[i], int(lens_np[i]), mo.a, max_nb_sec)
         return regs_per_read, fallback

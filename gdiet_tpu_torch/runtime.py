@@ -1,12 +1,15 @@
 """File-level mapping driver of the port (the mm_map_file analog).
 
-Port of ``gdiet_tpu/runtime.py`` for the short-read SAM paths: single-end
-(``_run_sr_sam_fast``) streams reads in fixed-shape batches through
+Port of ``gdiet_tpu/runtime.py`` for the SAM paths. Short reads, single-end
+(``_run_sr_sam_fast``): fixed-shape batches through
 ``ShortReadMapper.map_stream_sam`` with one-batch lookahead, budgets scaled
 to the observed read length, and an adaptive re-tier to a wider Lmax when
-long reads keep arriving; paired-end (``_run_sr_pe_sam_fast``) streams
-pairs from two FASTQs through ``map_stream_sam_pe``. Other variants and
-outputs raise ``NotImplementedError``.
+long reads keep arriving. Short reads, paired-end (``_run_sr_pe_sam_fast``):
+pairs from two FASTQs through ``map_stream_sam_pe``. Long reads (the
+generic per-record path, ``runtime.py:516-674``): fragment batches of
+``mini_batch_size`` bases through ``LongReadMapper.map_stream``, one SAM
+record per region. PAF, ``--split-prefix``/``--split-reads``, ``--mesh``
+and ``-y/--MD/--cs/-c`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,11 +21,11 @@ import time
 
 import torch
 
-from gdiet_tpu_torch import _host
+from gdiet_tpu_torch import __version__, config as cfg, debug
 from gdiet_tpu_torch.index.build import TorchIndex, build_index
-
-PROFILE, Stage = _host.profile.PROFILE, _host.profile.Stage
-__version__ = _host.__version__
+from gdiet_tpu_torch.io import sam as samio
+from gdiet_tpu_torch.io.fastx import SeqRecord, read_fastx, read_frag_batches
+from gdiet_tpu_torch.utils.profile import PROFILE, Stage
 
 
 def _log(verbose: int, t0: float, msg: str) -> None:
@@ -40,7 +43,7 @@ def load_or_build_index(target: str, io, device, verbose: int = 3,
         _log(verbose, t0, f"loaded prebuilt index ({mi.n_seq} sequences)")
         return mi
     with PROFILE.stage(Stage.INDEXING):
-        mi = build_index(((r.name, r.seq) for r in _host.fastx.read_fastx(target)),
+        mi = build_index(((r.name, r.seq) for r in read_fastx(target)),
                          io, device)
     _log(verbose, t0, f"built the index for {mi.n_seq} target sequence(s)")
     return mi
@@ -50,7 +53,7 @@ def _open_sam(out_path: str | None, mi, cli_line: str):
     """The SAM output stream with its header written."""
     bout = (open(out_path, "wb") if out_path and out_path != "-"
             else sys.stdout.buffer)
-    bout.write(_host.sam.sam_header(mi.names, [int(x) for x in mi.lengths],
+    bout.write(samio.sam_header(mi.names, [int(x) for x in mi.lengths],
                                     cli_line, __version__).encode())
     return bout
 
@@ -78,7 +81,7 @@ def run_sr_sam(mi, mo, query: str, out_path: str | None, n_threads: int,
     length-overflow reads. ``dp_fold``: ``TorchFusedMapper``'s."""
     from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
 
-    rdr = _host.fastx.read_fastx(query)
+    rdr = read_fastx(query)
     first = []
     for rec in rdr:
         first.append(rec)
@@ -174,7 +177,7 @@ def run_sr_pe_sam(mi, mo, q1: str, q2: str, out_path: str | None,
     without a mate map single-end through the oracle."""
     from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
 
-    it1, it2 = _host.fastx.read_fastx(q1), _host.fastx.read_fastx(q2)
+    it1, it2 = read_fastx(q1), read_fastx(q2)
     first: list = []
     odd: list = []  # unpaired leftovers (file length mismatch)
     for r1 in it1:
@@ -230,27 +233,109 @@ def run_sr_pe_sam(mi, mo, q1: str, q2: str, out_path: str | None,
     return 0
 
 
+def run_lr_sam(mi, mo, queries: list, out_path: str | None, n_threads: int,
+               verbose: int, cli_line: str, t0: float, device) -> int:
+    """Long-read + SAM path (gdiet_tpu/runtime.py:516-674, the generic
+    per-record writer): fragment batches of ``mini_batch_size`` bases
+    through ``LongReadMapper.map_stream`` with its default budgets; with
+    two files (or consecutive records sharing a qname) the segments of a
+    fragment are revcomp'd per ``pe_ori``, paired (mm_pair) and written
+    with mate fields."""
+    from gdiet_tpu_torch.oracle import hit as ohit
+    from gdiet_tpu_torch.pipeline.longread import LongReadMapper
+
+    mapper = LongReadMapper(mi, mo, n_threads=n_threads, device=device)
+    bout = _open_sam(out_path, mi, cli_line)
+    names = mi.names
+    n_mapped = 0
+
+    def emit_frags(frags, results):
+        """Per-fragment output with mate fields (map.c:1208-1280)."""
+        nonlocal n_mapped
+        k = 0
+        for frag in frags:
+            n = len(frag)
+            frag_res = results[k : k + n]
+            k += n
+            for j, rec in enumerate(frag):
+                n_mapped += 1
+                regs = frag_res[j]
+                mate = frag_res[(j + 1) % n] if n > 1 else None
+                lines = [samio.sam_record(
+                    rec.name, rec.seq, rec.qual, r, regs, names, mo.flag, 0,
+                    j, n, mate, index=mi, comment=rec.comment)
+                    for r in regs or []
+                    if not ((mo.flag & cfg.MM_F_NO_PRINT_2ND) and r.id != r.parent)]
+                if not regs:
+                    lines = [samio.sam_record(
+                        rec.name, rec.seq, rec.qual, None, [], names, mo.flag,
+                        0, j, n, mate, index=mi, comment=rec.comment)]
+                bout.write("".join(l + "\n" for l in lines).encode())
+
+    query_groups = [queries] if len(queries) == 2 else [[q] for q in queries]
+    for group in query_groups:
+        frag_batches = list(read_frag_batches(group, mo.mini_batch_size))
+        # pe_ori-revcomp paired segments before mapping, flip coordinates
+        # back after (worker_for, map.c:1057-1090)
+        flat_batches, flips = [], []
+        for fb in frag_batches:
+            flat, flip = [], []
+            for frag in fb:
+                for j, rec in enumerate(frag):
+                    if len(frag) == 2 and ((j == 0 and (mo.pe_ori >> 1) & 1)
+                                           or (j == 1 and mo.pe_ori & 1)):
+                        flat.append(SeqRecord(
+                            rec.name, samio.revcomp(rec.seq),
+                            rec.qual[::-1] if rec.qual else None, rec.comment))
+                        flip.append(len(flat) - 1)
+                    else:
+                        flat.append(rec)
+            flat_batches.append(flat)
+            flips.append(flip)
+        for fb, flat, flip, results in zip(frag_batches, flat_batches, flips,
+                                           mapper.map_stream(flat_batches)):
+            if mo.pe_ori >= 0 and (mo.flag & cfg.MM_F_CIGAR):
+                # mm_pair on mapping-orientation regs; frag_gap bound as in
+                # gdiet_tpu/runtime.py:636-653
+                gap = (mo.max_gap_ref if mo.max_gap_ref >= 0
+                       else max(mo.max_gap, mo.max_frag_len or 800))
+                kk = 0
+                for frag in fb:
+                    if (len(frag) == 2 and results[kk] is not None
+                            and results[kk + 1] is not None):
+                        ohit.pair(gap, mo.pe_bonus, mo.a * 2 + mo.b, mo.a,
+                                  [flat[kk].l_seq, flat[kk + 1].l_seq],
+                                  [results[kk], results[kk + 1]])
+                    kk += len(frag)
+            for idx in flip:  # back to the original read strand
+                qlen = flat[idx].l_seq
+                for r in results[idx] or []:
+                    r.qs, r.qe = qlen - r.qe, qlen - r.qs
+                    r.rev = 0 if r.rev else 1
+            emit_frags(fb, results)
+    _close_and_report(bout, n_mapped, verbose, cli_line, t0)
+    return 0
+
+
 def run_mapping(io, mo, variant: str, target: str, queries: list,
                 device, fnw: str | None = None, out_path: str | None = None,
                 n_threads: int = 3, verbose: int = 3,
                 cli_line: str = "gdiet") -> int:
-    """Build or load the index on ``device``, then map. Single-end and
-    paired-end short reads to SAM are ported; everything else raises."""
-    cfg = _host.config
+    """Build or load the index on ``device``, then map. Short reads
+    (single-end and paired-end) and long reads to SAM are ported;
+    everything else raises."""
     t0 = time.perf_counter()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("[ERROR] --device cuda: no CUDA device is available")
     unsupported = []
-    if variant != "sr":
-        unsupported.append("long-read presets")
     if queries and not (mo.flag & cfg.MM_F_OUT_SAM):
         unsupported.append("PAF output (use -a)")
-    if len(queries) > 2:
+    if len(queries) > 2 and variant == "sr":
         unsupported.append("more than two query files")
-    if len(queries) == 2 and (
+    if variant == "sr" and len(queries) == 2 and (
             os.environ.get("GDIET_NO_PE_FAST") or mo.pe_ori < 0
-            or not (mo.flag & cfg.MM_F_CIGAR) or _host.debug.enabled()
+            or not (mo.flag & cfg.MM_F_CIGAR) or debug.enabled()
             or mo.sdust_thres > 0):
         # gdiet_tpu/runtime.py:503-513 sends these to its generic
         # per-record paired-end writer
@@ -273,6 +358,9 @@ def run_mapping(io, mo, variant: str, target: str, queries: list,
         _log(verbose, t0, f"dumped the index to {fnw}")
     if not queries:
         return 0
+    if variant != "sr":
+        return run_lr_sam(mi, mo, queries, out_path, n_threads, verbose,
+                          cli_line, t0, device)
     # GDIET_DP_FOLD=1 takes the folded DP, as it does in gdiet_tpu
     dp_fold = os.environ.get("GDIET_DP_FOLD", "0") == "1"
     if len(queries) == 2:

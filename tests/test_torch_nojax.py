@@ -1,23 +1,32 @@
-"""The port's route imports no JAX: the golden mappings (single-end, and
-paired-end with the folded DP) run in a subprocess with
-``sys.modules["jax"] = None`` set before anything else, so any ``import
-jax`` on the path would fail. The host modules of gdiet_tpu are then
-reached through bare parent packages (``gdiet_tpu_torch._host``).
+"""The port stands alone: it imports neither JAX nor the JAX package.
+
+An AST walk over every module of ``gdiet_tpu_torch`` and over
+``chip_smoke.py`` finds no import of ``jax`` or ``gdiet_tpu`` (comments and
+docstrings may name the JAX files). The single-end, paired-end (folded DP)
+and long-read CLIs then run in a subprocess with ``sys.modules["jax"]``,
+``["jaxlib"]`` and ``["gdiet_tpu"]`` set to None before anything else, so
+any such import on their path would fail, and each writes the same SAM as
+the port's run in this process, where both packages are loaded.
 """
 
+import ast
 import os
 import pathlib
 import subprocess
 import sys
 
+import gdiet_tpu  # noqa: F401  (the in-process runs have both packages loaded)
+import pytest
+
+from gdiet_tpu_torch import cli
 from gdiet_tpu_torch.testing import r1_vs_single_end, sam_body
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 SCRIPT = r"""
 import sys
-sys.modules["jax"] = None
-sys.modules["jaxlib"] = None
+for name in ("jax", "jaxlib", "gdiet_tpu"):
+    sys.modules[name] = None
 import runpy
 sys.argv = ["gdiet_tpu_torch"] + sys.argv[1:]
 try:
@@ -25,10 +34,8 @@ try:
 except SystemExit as e:
     if e.code not in (0, None):
         raise
-from gdiet_tpu_torch import _host
-assert _host.MODE == "bare", _host.MODE
-assert sys.modules["jax"] is None and sys.modules["jaxlib"] is None
-assert not hasattr(sys.modules["gdiet_tpu"], "__file__")
+assert all(sys.modules[n] is None for n in ("jax", "jaxlib", "gdiet_tpu"))
+assert not [n for n in sys.modules if n.startswith(("jax.", "gdiet_tpu."))]
 print("NOJAX_OK")
 """
 
@@ -37,6 +44,28 @@ ARGS = ["--device", "cpu", "-a", "-t", "1", "-x", "sr", "-Z", "10",
         "-W", "2", "-k", "21", "-w", "11", "-i", "2", "-N", "1",
         "-r", "0.05,150,200", "-n", "0.95,0.3", "-s", "100",
         "--AF_max_loc", "2", "-v", "1"]
+HIFI_ARGS = ["--device", "cpu", "-a", "-t", "1", "-x", "map-hifi", "-Z", "10",
+             "-W", "2", "-k", "19", "-w", "19", "-i", "0.2", "-r", "200",
+             "--vt_dis=650", "--vt_nb_loc=5", "--vt_df1=0.0106", "--vt_df2=0.2",
+             "-s", "100", "--vt_cov", "0.04", "--vt_f=0.04", "-v", "1"]
+
+
+def _imports(path: pathlib.Path) -> list:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+def test_port_imports_neither_jax_nor_gdiet_tpu():
+    files = sorted((ROOT / "gdiet_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 30
+    bad = [(str(f.relative_to(ROOT)), n) for f in files for n in _imports(f)
+           if n.split(".")[0] in ("jax", "jaxlib", "gdiet_tpu")]
+    assert not bad, bad
 
 
 def _run_without_jax(args, env=None):
@@ -46,11 +75,25 @@ def _run_without_jax(args, env=None):
     assert "NOJAX_OK" in res.stdout
 
 
+def _run_here(args, out, env=None):
+    """The same CLI in this process, where JAX and gdiet_tpu are loaded."""
+    assert "gdiet_tpu" in sys.modules and "jax" in sys.modules
+    saved = dict(os.environ)
+    os.environ.update(env or {})
+    try:
+        assert cli.main([*args, "-o", str(out)]) == 0
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+    return sam_body(out)
+
+
 def test_cli_golden_without_jax(data_dir, tmp_path):
     out = tmp_path / "out.sam"
-    _run_without_jax([*ARGS, "-o", str(out), str(data_dir / "ref.fa"),
-                      str(data_dir / "reads.fq")])
+    inputs = [str(data_dir / "ref.fa"), str(data_dir / "reads.fq")]
+    _run_without_jax([*ARGS, "-o", str(out), *inputs])
     assert sam_body(out) == sam_body(data_dir / "golden.sam")
+    assert sam_body(out) == _run_here([*ARGS, *inputs], tmp_path / "here.sam")
 
 
 def test_pe_cli_without_jax(data_dir, tmp_path):
@@ -58,10 +101,31 @@ def test_pe_cli_without_jax(data_dir, tmp_path):
     single-end golden except for what pairing rewrites (FLAG PE bits,
     MAPQ, mate columns), as tests/test_pe_parity.py checks them."""
     out = tmp_path / "pe.sam"
-    _run_without_jax([*ARGS, "-o", str(out), str(data_dir / "ref_pe.fa"),
-                      str(data_dir / "reads_pe_1.fq"), str(data_dir / "reads_pe_2.fq")],
-                     env={**os.environ, "GDIET_DP_FOLD": "1"})
+    inputs = [str(data_dir / "ref_pe.fa"), str(data_dir / "reads_pe_1.fq"),
+              str(data_dir / "reads_pe_2.fq")]
+    fold = {"GDIET_DP_FOLD": "1"}
+    _run_without_jax([*ARGS, "-o", str(out), *inputs], env={**os.environ, **fold})
     n_checked, bad = r1_vs_single_end(sam_body(out),
                                       sam_body(data_dir / "golden_pe_r1.sam"))
     assert not bad, bad[:5]
     assert n_checked > 200
+    assert sam_body(out) == _run_here([*ARGS, *inputs], tmp_path / "here.sam", fold)
+
+
+@pytest.fixture
+def lr_subset(data_dir, tmp_path):
+    """The first 8 reads of the long-read fixture."""
+    sub = tmp_path / "reads_lr8.fq"
+    sub.write_text("\n".join((data_dir / "reads_lr.fq").read_text().splitlines()[:32]) + "\n")
+    return sub
+
+
+def test_lr_cli_without_jax(data_dir, tmp_path, lr_subset):
+    out = tmp_path / "lr.sam"
+    inputs = [str(data_dir / "ref_lr.fa"), str(lr_subset)]
+    _run_without_jax([*HIFI_ARGS, "-o", str(out), *inputs])
+    keep = {f"lr{i}" for i in range(8)}
+    golden = [l for l in sam_body(data_dir / "golden_lr_hifi.sam")
+              if l.split("\t")[0] in keep]
+    assert sam_body(out) == golden
+    assert sam_body(out) == _run_here([*HIFI_ARGS, *inputs], tmp_path / "here.sam")

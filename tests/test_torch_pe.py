@@ -102,16 +102,16 @@ def test_pe_oracle_matches_native(tmp_path):
     """The per-pair oracle finish (the fallback of pairs outside the
     envelope) writes what the native pe_finish_batch writes, under the
     flags of -a (CIGAR output, which mm_pair needs)."""
-    from gdiet_tpu_torch import _host
+    from gdiet_tpu_torch import config
     from gdiet_tpu_torch.index import build_index
+    from gdiet_tpu_torch.io.fastx import read_fastx as read
     from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
 
-    io_, mo = _host.config.options_for(
+    io_, mo = config.options_for(
         "sr", pattern="10", max_seeds=2.0, best_n=1, bw_frac=0.05,
         bw_min=150, bw_max=200, min_cnt=0.95, rec_threshold_frac=0.3,
         min_dp_max=100, AF_max_loc=2)
-    mo.flag |= _host.config.MM_F_OUT_SAM | _host.config.MM_F_CIGAR
-    read = _host.fastx.read_fastx
+    mo.flag |= config.MM_F_OUT_SAM | config.MM_F_CIGAR
     mi = build_index([(r.name, r.seq) for r in read(INPUTS[0])], io_, "cpu")
     mapper = ShortReadMapper(mi, mo, max_read_len=160, seed_budget=32,
                              shift_seed_budget=16, hit_budget=64,

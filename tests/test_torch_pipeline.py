@@ -8,8 +8,8 @@ oracle both take reads, and the SAM must still be identical.
 
 import pytest
 
-from gdiet_tpu.config import options_for
-from gdiet_tpu.io.fastx import read_fastx
+from gdiet_tpu_torch.config import options_for
+from gdiet_tpu_torch.io.fastx import read_fastx
 from gdiet_tpu_torch.index import build_index
 from gdiet_tpu_torch.ops import dp
 from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
