@@ -57,12 +57,17 @@ JAX. Phases, each printing one line:
 8. kernel_band: the banded lane window kernel ``extd2_band`` against its
    plain version at the (2048, 3072) long-read bucket, 64 seeded windows
    (equal, mutated, indels, N codes, dead rows), at band 500 (WB 768) and
-   1300 (WB 1,536, two lanes per thread): scores, every dirs byte, offs and
+   1300 (WB 1,536), two lanes per thread: scores, every dirs byte, offs and
    off_ends exact, and ``backtrack_band`` on those dirs equal to the plain
    backtrack. The unwindowed (512, 1024) bucket of band 1000 through
    ``extd2`` (1,024 threads) and the backtrack kernel's full-width mode,
    exact. Then both kernels alone at (4096, 5120). Times as in phase 2, the
    plain versions one run each; every kernel's bound from this run's data.
+   Also: us per wavefront step over the longest candidate's live steps, us
+   per walk step of the longest walk and the walk's serial floor beside its
+   bound; ptxas registers, static shared memory and spills of both
+   kernels; the DPX instructions in the band kernel's SASS (``cuobjdump
+   -sass``, > 0).
 9. golden_lr: ``tests/data/ref_lr.fa`` + ``reads_lr.fq`` through the port's
    CLI on ``cuda`` with the HiFi and ONT arguments of
    ``tests/data/make_lr_fixtures.py``: records byte-equal to
@@ -135,13 +140,67 @@ def card_line() -> str:
 
 # ---------------------------------------------------------------------------
 def phase_build() -> dict:
+    """Every csrc/*.cu, all nvcc processes started together. Returns {name:
+    (library, seconds, ptxas log)}."""
     from gdiet_tpu_torch.ops import extd2
 
-    secs = {}
-    for name, (_, dt, log) in extd2.build_all(verbose=True).items():
+    built = extd2.build_all(verbose=True)
+    for name, (_, dt, log) in built.items():
         print(f"[build] {name}.cu: {dt:.2f} s\n{log.strip()}", flush=True)
-        secs[name] = dt
-    return secs
+    return built
+
+
+def ptxas_info(log: str) -> dict:
+    """Per kernel entry of nvcc's ``-Xptxas -v`` output: registers, static
+    shared memory and spill bytes."""
+    import re
+
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur.update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m[1])
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["static_smem"] = int(m[1])
+    return out
+
+
+def sass_vi_ops(so) -> dict:
+    """Histogram of the VI* (vector-integer min/max) opcodes in a built
+    library's SASS (``cuobjdump -sass``), and ``dpx``: those that are
+    Hopper's DPX instructions (three-way max/min, fused add-max, max with
+    relu), i.e. every VI* opcode other than the plain add VIADD and the
+    plain two-way VIMNMX without relu."""
+    import collections
+    import os
+    import re
+    import shutil
+
+    home = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    tool = home / "bin" / "cuobjdump"
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    check(tool is not None, "cuobjdump not found (CUDA toolkit)")
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    ops = collections.Counter()
+    pat = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?(VI[A-Z0-9_]*(?:\.[A-Z0-9_]+)*)")
+    for line in sass.splitlines():
+        m = pat.search(line)
+        if m:
+            ops[m.group(1)] += 1
+    dpx = sum(v for k, v in ops.items()
+              if k.split(".")[0] not in ("VIADD", "VIMNMX") or "RELU" in k)
+    return {"dpx": dpx, "vi_opcodes": dict(ops)}
 
 
 def dp_pairs(N: int, L: int, qlen: int, seed: int = 1):
@@ -756,16 +815,42 @@ def band_windows(N: int, Lmax: int, Lt: int, seed: int = 3):
     return Q, T, lens, tlens
 
 
+# a shared-memory load's latency on the card, for the backtrack's serial
+# floor (its walk is a chain of dependent loads)
+SMEM_LOAD_CYCLES, SM_CLOCK_HZ = 30, 1.98e9
+
+
+def live_steps(lens, tlens) -> int:
+    """The longest candidate's live wavefronts, qlen + tlen - 1 (0 for a
+    qlen-0 candidate): where extd2_band.cu ends the launch."""
+    return int(max(((lens + tlens - 1) * (lens > 0)).max(), 0))
+
+
+def walk_report(bt_out, bt_ms: float, N: int) -> dict:
+    """The backtrack's bound, its longest walk, us per walk step of that
+    walk, and the serial floor beside the bound: the longest walk's steps
+    times one shared-memory load."""
+    longest = int((bt_out[0] != 255).sum(1).max()) if N else 0
+    return {**backtrack_bound(bt_out, N), "longest_walk_steps": longest,
+            "us_per_walk_step": bt_ms * 1e3 / max(longest, 1),
+            "serial_floor_ms": longest * SMEM_LOAD_CYCLES / SM_CLOCK_HZ * 1e3}
+
+
 def phase_kernel_band(device, card: str, N: int = 64, Lmax: int = 2048,
-                      Lt: int = 3072, big: tuple = (4096, 5120)) -> dict:
+                      Lt: int = 3072, big: tuple = (4096, 5120), built=None) -> dict:
     """The banded lane window kernel against its plain version at the
-    (2048, 3072) long-read bucket, at band budgets 500 (WB 768, one lane
-    per thread) and 1300 (WB 1,536, two lanes per thread): scores, every
+    (2048, 3072) long-read bucket, at band budgets 500 (WB 768) and 1300
+    (WB 1,536), two lanes per thread: scores, every
     dirs byte, offs and off_ends exact; the backtrack kernel on those dirs
     equal to the plain backtrack. The unwindowed (512, 1024) bucket of
     map-hifi's default band 1000 through extd2.cu (1,024 threads) and the
     backtrack kernel's full-width mode, exact. Then both kernels alone at
-    the HiFi workload's largest bucket, (4096, 5120) with band 500."""
+    the HiFi workload's largest bucket, (4096, 5120) with band 500. Per
+    run: us per wavefront step of the longest candidate's live steps, us
+    per walk step of the longest walk and the walk's serial floor. With
+    ``built`` (phase_build's libraries and logs): ptxas registers, static
+    shared memory and spills of both kernels, and the DPX instructions in
+    the band kernel's SASS (must be > 0)."""
     import torch
 
     from gdiet_tpu_torch.ops import dp, dp_band, extd2
@@ -778,10 +863,13 @@ def phase_kernel_band(device, card: str, N: int = 64, Lmax: int = 2048,
         Q, T, lens, tlens = band_windows(N, Lmax, Lt)
         band = np.full(N, bb, np.int32)
         q, t, ln, bd, tl = (torch.from_numpy(a).to(device) for a in (Q, T, lens, band, tlens))
+
+        def kern():
+            return extd2.extd2_batch(q, t, ln, bd, LR_PARAMS, Lmax, tlens=tl, Lt=Lt,
+                                     band_budget=bb, unroll=U)
+
         kern_out, plain_out, times = kernel_vs_plain(
-            lambda: extd2.extd2_batch(q, t, ln, bd, LR_PARAMS, Lmax, tlens=tl, Lt=Lt,
-                                      band_budget=bb, unroll=U),
-            lambda: dp_band.extd2_band(q, t, ln, bd, LR_PARAMS, Lmax, tl, Lt, bb, U),
+            kern, lambda: dp_band.extd2_band(q, t, ln, bd, LR_PARAMS, Lmax, tl, Lt, bb, U),
             cuda, plain_runs=1)
         err = check_equal(kern_out, plain_out, DP_OUTPUTS,
                           f"extd2_band at band {bb}")
@@ -794,13 +882,16 @@ def phase_kernel_band(device, card: str, N: int = 64, Lmax: int = 2048,
         bt_err = check_equal(bt_out, bt_plain, BT_OUTPUTS,
                              f"backtrack_band at band {bb}")
         _, R, WB = dp_band.band_shape(Lmax, Lt, bb, U)
-        out["runs"].append({
-            "band_budget": bb, "WB": WB, "R": R, **times, "max_abs_err": err,
-            **dp_bound((q, t, ln, bd, tl), kern_out),
-            "live_rows": int((lens > 0).sum()),
-            "reach_corner": int((kern_out[0] > -0x40000000).sum()),
-            "backtrack": {**bt_times, "max_abs_err": bt_err,
-                          **backtrack_bound(bt_out, N)}})
+        steps = live_steps(lens, tlens)
+        run = {"band_budget": bb, "WB": WB, "R": R, **times, "max_abs_err": err,
+               **dp_bound((q, t, ln, bd, tl), kern_out),
+               "live_rows": int((lens > 0).sum()),
+               "reach_corner": int((kern_out[0] > -0x40000000).sum()),
+               "longest_live_steps": steps,
+               "us_per_wavefront_step": times["kernel_ms"] * 1e3 / max(steps, 1),
+               "backtrack": {**bt_times, "max_abs_err": bt_err,
+                             **walk_report(bt_out, bt_times["kernel_ms"], N)}}
+        out["runs"].append(run)
     # map-hifi's default bw 1000 leaves the (512, 1024) bucket unwindowed:
     # extd2.cu at 1,024 threads per block, the backtrack kernel on the
     # full-width layout
@@ -827,18 +918,29 @@ def phase_kernel_band(device, card: str, N: int = 64, Lmax: int = 2048,
     Q, T, lens, tlens = band_windows(N, Lq4, Lt4, seed=4)
     band = np.full(N, bb, np.int32)
     q, t, ln, bd, tl = (torch.from_numpy(a).to(device) for a in (Q, T, lens, band, tlens))
-    big, _, big_times = kernel_vs_plain(
-        lambda: extd2.extd2_batch(q, t, ln, bd, LR_PARAMS, Lq4, tlens=tl, Lt=Lt4,
-                                  band_budget=bb, unroll=U), lambda: None, cuda, plain_runs=1)
+
+    def kern_big():
+        return extd2.extd2_batch(q, t, ln, bd, LR_PARAMS, Lq4, tlens=tl, Lt=Lt4,
+                                 band_budget=bb, unroll=U)
+
+    big, _, big_times = kernel_vs_plain(kern_big, lambda: None, cuda, plain_runs=1)
     bt, _, bt_times = kernel_vs_plain(
         lambda: extd2.backtrack_band(big[1], ln, tl, bd, Lq4, Lt4, band_budget=bb, unroll=U),
         lambda: None, cuda, plain_runs=1)
     _, R, WB = dp_band.band_shape(Lq4, Lt4, bb, U)
+    steps = live_steps(lens, tlens)
     out["hifi_largest_bucket"] = {
         "Lmax": Lq4, "Lt": Lt4, "band_budget": bb, "WB": WB, "R": R, "N": N,
         "kernel_ms": big_times["kernel_ms"], "kernel_ms_rounds": big_times["kernel_ms_rounds"],
-        **dp_bound((q, t, ln, bd, tl), big),
-        "backtrack_ms": bt_times["kernel_ms"], "backtrack": backtrack_bound(bt, N)}
+        **dp_bound((q, t, ln, bd, tl), big), "longest_live_steps": steps,
+        "us_per_wavefront_step": big_times["kernel_ms"] * 1e3 / max(steps, 1),
+        "backtrack_ms": bt_times["kernel_ms"],
+        "backtrack": walk_report(bt, bt_times["kernel_ms"], N)}
+    if built:
+        info = {k: ptxas_info(built[k][2]) for k in ("extd2_band", "backtrack_band")}
+        sass = {k: sass_vi_ops(built[k][0]) for k in ("extd2_band", "backtrack_band")}
+        check(sass["extd2_band"]["dpx"] > 0, f"no DPX instruction in extd2_band's SASS: {sass}")
+        out.update(ptxas=info, sass=sass)
     out.update(N=N, Lmax=Lmax, Lt=Lt, card=card)
     say("kernel_band", **out)
     return out
@@ -1030,9 +1132,9 @@ def main() -> int:
 
     card = card_line()
     print(card, flush=True)
-    build_s = phase_build()
+    built = phase_build()
     say("device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
-        build_s=build_s)
+        build_s={name: b[1] for name, b in built.items()})
     k = phase_kernel("cuda", card=card, **KERNEL_SHAPE)
     kf = phase_kernel_fold("cuda", card=card, **KERNEL_SHAPE)
     kf_pe = phase_kernel_fold("cuda", card=card, phase="kernel_fold_pe",
@@ -1041,7 +1143,7 @@ def main() -> int:
     m = phase_main("cuda", BENCH_B, N_TIMED, GENOME_LEN, card)
     phase_golden_pe(card)
     pe = phase_pe("cuda", PE_PAIRS, PE_TIMED, GENOME_LEN, card)
-    kb = phase_kernel_band("cuda", card)
+    kb = phase_kernel_band("cuda", card, built=built)
     phase_golden_lr(card)
     lr = phase_lr("cuda", LR_TIMED, GENOME_LEN, card)
     src = "gdiet_tpu_torch/csrc/"

@@ -63,6 +63,25 @@ def window_base(r0: int, band_budget: int, T: int, WB: int) -> int:
     return min(max(lo_raw, 0), T - WB) // 128 * 128
 
 
+def backtrack_tile(r: int, i: int, K: int, Wd: int, T: int, WB: int | None = None,
+                   band_budget: int | None = None, unroll: int = LR_UNROLL):
+    """The dirs bytes a backtrack walk at antidiagonal r, lane i can read in
+    its next K steps, the rule ``csrc/backtrack_band.cu`` stages its tiles
+    by. Each step lowers r by 1 or 2 and i by 0 or 1, so the rows are
+    [r - 2K + 1, r] and the lanes [i - K + 1, i]; row rr maps lanes to
+    columns as the walk does, clip(lane - lo_al(rr), 0, Wd - 1), with lo_al
+    the window base of rr's grid step (0 in the full-width layout, WB
+    None). Returns (r_lo, r_hi, col_lo, col_hi): col_lo[k] .. col_hi[k]
+    are row r_lo + k's columns."""
+    r_lo = max(r - 2 * K + 1, 0)
+    col_lo, col_hi = [], []
+    for rr in range(r_lo, r + 1):
+        lo = 0 if WB is None else window_base(rr // unroll * unroll, band_budget, T, WB)
+        col_lo.append(min(max(i - K + 1 - lo, 0), Wd - 1))
+        col_hi.append(min(max(i - lo, 0), Wd - 1))
+    return r_lo, r, col_lo, col_hi
+
+
 def extd2_band(query, target, lens, band, params, Lmax: int, tlens, Lt: int,
                band_budget: int, unroll: int = LR_UNROLL):
     """Windowed DP of N (query, target) windows, as
@@ -72,8 +91,10 @@ def extd2_band(query, target, lens, band, params, Lmax: int, tlens, Lt: int,
     (score [N] i32, dirs [N, R, WB] u8, offs [N, R] i32, off_ends [N, R]
     i32); dirs column j of wavefront r is lane ``window_base(r // unroll *
     unroll) + j``. Rows with qlen 0 are never live (score NEG_INF, dirs 0),
-    nor is any row past its last wavefront qlen+tlen-2, so the replay runs
-    over the live rows up to the last live wavefront only."""
+    nor is any row past its last wavefront qlen+tlen-2 (its dirs are 0
+    from wavefront qlen+tlen-1 on, where ``csrc/extd2_band.cu`` ends the
+    candidate), so the replay runs over the live rows up to the last live
+    wavefront only."""
     calls.n += 1
     T, R, WB = band_shape(Lmax, Lt, band_budget, unroll)
     if WB is None:

@@ -95,11 +95,22 @@ def build_all(names=KERNELS, verbose: bool = False) -> dict:
     return out
 
 
-def _library(name: str, entry: str, argtypes: list) -> ctypes.CDLL:
+_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# each library's C entry point and its arguments
+ENTRIES = {
+    "extd2": ("gdiet_extd2", [_P] * 7 + [_I64] * 5 + [_I] * 8 + [_P]),
+    "extd2_fold": ("gdiet_extd2_fold", [_P] * 7 + [_I64] * 8 + [_I] * 8 + [_P]),
+    "extd2_band": ("gdiet_extd2_band", [_P] * 7 + [_I64] * 6 + [_I] * 10 + [_P]),
+    "backtrack_band": ("gdiet_backtrack_band", [_P] * 7 + [_I64] * 6 + [_I] * 2 + [_P]),
+}
+
+
+def _library(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         so, _, _ = build_all([name])[name]
         lib = ctypes.CDLL(str(so))
+        entry, argtypes = ENTRIES[name]
         fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
@@ -171,9 +182,7 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
         _, Nrows, C = dp_fold.fold_split(N, T)
         score = torch.empty(((C + 1) * Nrows,), dtype=torch.int32, device=dev)
         dirs = torch.empty(((C + 1) * H, Nrows, T), dtype=torch.uint8, device=dev)
-        lib = _library("extd2_fold", "gdiet_extd2_fold",
-                       [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 8
-                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        lib = _library("extd2_fold")
         with torch.cuda.device(dev):
             rc = lib.gdiet_extd2_fold(*ptrs, score.data_ptr(), dirs.data_ptr(),
                                       N, Lmax, Lt, T, Tn, H, Nrows, C,
@@ -188,9 +197,7 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
     score = torch.empty((N,), dtype=torch.int32, device=dev)
     dirs = torch.empty((N, R, T), dtype=torch.uint8, device=dev)
     if N:
-        lib = _library("extd2", "gdiet_extd2",
-                       [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 5
-                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        lib = _library("extd2")
         with torch.cuda.device(dev):
             rc = lib.gdiet_extd2(*ptrs, score.data_ptr(), dirs.data_ptr(),
                                  N, Lmax, Lt, T, R, *scoring, _stream(dev))
@@ -210,9 +217,7 @@ def _extd2_band(query, target, lens, tlens, band, scoring, Lmax: int, Lt: int,
     score = torch.empty((N,), dtype=torch.int32, device=dev)
     dirs = torch.empty((N, R, WB), dtype=torch.uint8, device=dev)
     if N:
-        lib = _library("extd2_band", "gdiet_extd2_band",
-                       [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 6
-                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        lib = _library("extd2_band")
         with torch.cuda.device(dev):
             rc = lib.gdiet_extd2_band(
                 query.data_ptr(), target.data_ptr(), lens.data_ptr(),
@@ -251,14 +256,14 @@ def backtrack_band(dirs, lens, tlens, band, Lmax: int, Lt: int,
     _check("dirs", dirs, torch.uint8, (N, R, Wd), dev)
     for name, t in (("lens", lens), ("tlens", tlens), ("band", band)):
         _check(name, t, torch.int32, (N,), dev)
+    if dirs.data_ptr() % 16:
+        raise ValueError("backtrack_band: dirs must be 16-byte aligned")
     Rpad = dp.round_up(R, 8)
     ops = torch.empty((N, Rpad), dtype=torch.uint8, device=dev)
     fin_i = torch.empty((N,), dtype=torch.int32, device=dev)
     fin_j = torch.empty((N,), dtype=torch.int32, device=dev)
     if N:
-        lib = _library("backtrack_band", "gdiet_backtrack_band",
-                       [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 6
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib = _library("backtrack_band")
         with torch.cuda.device(dev):
             rc = lib.gdiet_backtrack_band(
                 dirs.data_ptr(), lens.data_ptr(), tlens.data_ptr(),
