@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of gdiet_tpu_torch (the PyTorch/CUDA port).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--prev DIR]
 
 Needs one CUDA GPU, the CUDA toolkit (nvcc) and a C compiler; imports no
 JAX. Phases, each printing one line:
@@ -10,39 +10,52 @@ JAX. Phases, each printing one line:
    of the SR, PE and LR paths built from the checkout's sources, one
    ``nvcc`` per source started together (seconds and ``ptxas -v`` output
    per kernel).
-2. kernel: the CUDA ``extd2`` DP kernel against its plain torch version on
-   the card at the short-read main-path shape (6,272 rows, Lmax = Lt = 160,
-   qlen 150, bands 150-200; seeded pairs with substitutions, indels, N bases
-   and empty rows). Scores and direction bytes must be bit-equal
-   (tolerance: exact). Prints both times (the kernel's as the median of 5
-   rounds of 10 launches, the plain version's as the better of 2 runs) and
-   the kernel's MCUPS.
-3. kernel_fold: the folded ``extd2_fold`` kernel against its plain version
-   on the same rows (576 kernel rows, 11 passes + drain), then again on the
-   rows the PE phase gives it per batch (5,120 rows of 4,096 pairs: 384
-   kernel rows, 14 passes): scores, every byte of the raw folded dirs, offs
-   and off_ends bit-equal; the folded backtrack of its dirs gives the ops
-   and fin_i/fin_j of the unfolded kernel plus the unfolded backtrack.
-   Times and MCUPS as in phase 2.
+2. kernel: the CUDA ``extd2`` DP kernel (one warp per row) against its
+   plain torch version on the card at the short-read main-path shape (6,272
+   rows, Lmax = Lt = 160, qlen 150, bands 150-200; seeded pairs with
+   substitutions, indels, N bases and empty rows): scores, dirs, offs and
+   off_ends bit-equal (tolerance: exact). Then the backtrack kernel on its
+   dirs against the plain walk, exact. Prints the times (a kernel's as the
+   median of 5 rounds of 10 launches, a plain version's as the better of 2
+   runs), the bounds, us per wavefront step, the share of the bound, the
+   backtrack's serial floor, ptxas registers/spills and the DPX
+   instructions in the SASS (``cuobjdump -sass``, > 0).
+3. kernel_fold: the folded ``extd2_fold`` kernel (four warps per kernel
+   row) against its plain version on the same rows (576 kernel rows, 11
+   passes + drain), then again on the rows the PE phase gives it per batch
+   (5,120 rows of 4,096 pairs: 384 kernel rows, 14 passes): scores, every
+   byte of the raw folded dirs, offs and off_ends bit-equal; the backtrack
+   kernel on the folded dirs equal to the plain folded walk, and both to
+   the plain walk of the unfolded kernel's dirs. Times, bounds and build
+   facts as in phase 2.
+   With ``--prev DIR`` (earlier sources of ``extd2.cu`` and
+   ``extd2_fold.cu``): both kernels timed in turns against the earlier
+   sources on the same inputs, outputs equal (phase ``prev``).
 4. golden: ``tests/data`` fixtures (``golden.sam`` and ``golden2_*.sam`` for
    patterns 10, 1110, 11 and 110) mapped on the card through
    ``ShortReadMapper.map_stream_sam``; records must equal the reference
-   binary's golden SAM byte for byte.
+   binary's golden SAM byte for byte; the backtrack kernel launched and the
+   plain walk never called.
 5. main: the bench workload (2 Mbp genome, 150 bp reads at 0.5%
    substitutions, half reverse-complemented, bench.py's recipe) indexed on
    the card and mapped at the bench budgets, 1 warm-up + 4 timed batches of
-   10,016 reads. Kernel launch counts are reset just before and read just
-   after. Checks: >= 99% of the mapped primary records within 10 bp of
-   where the reference places them (the simulated origin for forward reads;
-   origin + k-1 for reverse reads, the reference's reverse-strand window),
-   >= 90% of reads mapped, the first unmapped reads unmapped by the scalar
-   oracle too, and the first 128 reads' SAM equal to the oracle's.
+   10,016 reads. Kernel launch counts (DP and backtrack) and the plain
+   versions' call counts are reset just before and read just after: the
+   kernels launched, the plain versions never called. Checks: >= 99% of
+   the mapped primary records within 10 bp of where the reference places
+   them (the simulated origin for forward reads; origin + k-1 for reverse
+   reads, the reference's reverse-strand window), >= 90% of reads mapped,
+   the first unmapped reads unmapped by the scalar oracle too, and the
+   first 128 reads' SAM equal to the oracle's. One batch's per-phase device
+   times; its DP inputs, as the step hands them to the DP kernel, through
+   the kernel and the plain version, and its dirs through the backtrack
+   kernel and the plain walk: exact.
 6. golden_pe: the paired-end fixture (``ref_pe.fa``, ``reads_pe_1.fq`` +
    ``reads_pe_2.fq``) through the port's PE CLI on ``cuda`` with
    ``GDIET_DP_FOLD=1``: records equal the same run on ``cpu`` (the plain
    versions) and on ``cuda`` with the fold off, byte for byte, and the R1
    records match ``golden_pe_r1.sam`` as ``tests/test_pe_parity.py`` checks
-   them.
+   them. Both cuda runs launch the backtrack kernel and never the plain walk.
 7. pe: the PE path at full width with ``GDIET_DP_FOLD=1``: FR pairs of 150
    bp ends (fragments of 250-500 bp, 0.5% substitutions) from the bench
    genome, 1 warm-up + 3 timed batches of 4,096 pairs at the JAX runtime's
@@ -50,10 +63,11 @@ JAX. Phases, each printing one line:
    Checks: >= 90% of pairs with both ends mapped, >= 99% of mapped primary
    records where the reference places them, the first 64 pairs equal to
    the oracle's PE finish, the first batch's SAM identical with the fold
-   off, fold launches > 0 and no plain-fold call or unfolded launch. The
-   DP inputs of one batch, as the step hands them to the fold kernel, go
-   through the kernel and the plain fold version once more: bit-equal.
-
+   off, fold and backtrack launches > 0 and no plain-fold, unfolded or
+   plain-backtrack call (none of the plain walk with the fold off either).
+   The DP inputs of one batch, as the step hands them to the fold kernel,
+   go through the kernel and the plain fold version once more, and the
+   folded dirs through the backtrack kernel and the plain walk: exact.
 8. kernel_band: the banded lane window kernel ``extd2_band`` against its
    plain version at the (2048, 3072) long-read bucket, 64 seeded windows
    (equal, mutated, indels, N codes, dead rows), at band 500 (WB 768) and
@@ -180,7 +194,8 @@ def sass_vi_ops(so) -> dict:
     library's SASS (``cuobjdump -sass``), and ``dpx``: those that are
     Hopper's DPX instructions (three-way max/min, fused add-max, max with
     relu), i.e. every VI* opcode other than the plain add VIADD and the
-    plain two-way VIMNMX without relu."""
+    plain two-way VIMNMX without relu. ``local_ops``: per kernel entry, the
+    local-memory loads and stores (LDL, STL) in its SASS."""
     import collections
     import os
     import re
@@ -193,14 +208,23 @@ def sass_vi_ops(so) -> dict:
     sass = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
     ops = collections.Counter()
+    local = collections.Counter()
     pat = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?(VI[A-Z0-9_]*(?:\.[A-Z0-9_]+)*)")
+    fn = None
     for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            local[fn] += 0
+            continue
         m = pat.search(line)
         if m:
             ops[m.group(1)] += 1
+        if re.search(r"\s(LDL|STL)(\.|\s)", line):
+            local[fn] += 1
     dpx = sum(v for k, v in ops.items()
               if k.split(".")[0] not in ("VIADD", "VIMNMX") or "RELU" in k)
-    return {"dpx": dpx, "vi_opcodes": dict(ops)}
+    return {"dpx": dpx, "vi_opcodes": dict(ops), "local_ops": dict(local)}
 
 
 def dp_pairs(N: int, L: int, qlen: int, seed: int = 1):
@@ -316,28 +340,56 @@ def _max_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
-def phase_kernel(device, N: int, L: int, qlen: int, card: str) -> dict:
+def kernel_build_info(built, name: str) -> dict:
+    """ptxas registers, static shared memory and spills of a kernel's
+    entries, and the DPX instructions in its SASS (must be > 0)."""
+    sass = sass_vi_ops(built[name][0])
+    check(sass["dpx"] > 0, f"no DPX instruction in {name}'s SASS: {sass}")
+    return {"ptxas": ptxas_info(built[name][2]), "sass": sass}
+
+
+def backtrack_vs_plain(dirs, ln, bd, L: int, cuda: bool, fold: bool = False) -> tuple:
+    """The backtrack kernel on a DP call's dirs (tlens = qlens, the
+    short-read step's call) against the plain walk, timed as
+    kernel_vs_plain times; exact. Returns (kernel outputs, report)."""
+    from gdiet_tpu_torch.ops import extd2
+    from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
+
+    out, plain, times = kernel_vs_plain(
+        lambda: extd2.backtrack_band(dirs, ln, ln, bd, L, L, fold=fold),
+        lambda: backtrack_antidiag(dirs, ln, bd, L, fold=fold), cuda)
+    err = check_equal(out, plain, BT_OUTPUTS, f"backtrack_band (fold {fold}) on {len(ln)} rows")
+    return out, {**times, "max_abs_err": err, **walk_report(out, times["kernel_ms"], len(ln))}
+
+
+def phase_kernel(device, N: int, L: int, qlen: int, card: str, built=None) -> dict:
+    """The extd2 kernel (one warp per row at 160 lanes) against its plain
+    version, then the backtrack kernel on its dirs against the plain walk.
+    With ``built``: ptxas registers/spills and the DPX count."""
     import torch
 
     from gdiet_tpu_torch.ops import dp, extd2
 
+    cuda = torch.device(device).type == "cuda"
     Q, T, lens, band = dp_pairs(N, L, qlen)
     q, t, ln, bd = (torch.from_numpy(a).to(device) for a in (Q, T, lens, band))
     kern_out, plain_out, times = kernel_vs_plain(
         lambda: extd2.extd2_batch(q, t, ln, bd, PARAMS, L),
-        lambda: dp.extd2_batch(q, t, ln, bd, PARAMS, L),
-        torch.device(device).type == "cuda")
-    s_err, d_err = _max_err(kern_out[0], plain_out[0]), _max_err(kern_out[1], plain_out[1])
-    check(torch.equal(kern_out[0], plain_out[0]), f"extd2 scores differ (max {s_err})")
-    check(torch.equal(kern_out[1], plain_out[1]), f"extd2 dirs differ (max {d_err})")
-    check(torch.equal(kern_out[2], plain_out[2]) and torch.equal(kern_out[3], plain_out[3]),
-          "extd2 band geometry differs")
+        lambda: dp.extd2_batch(q, t, ln, bd, PARAMS, L), cuda)
+    err = check_equal(kern_out, plain_out, DP_OUTPUTS, f"extd2 on {N} rows")
+    _, bt = backtrack_vs_plain(kern_out[1], ln, bd, L, cuda)
     cells = float((lens.astype(np.int64) * lens).sum())
+    steps = live_steps(lens, lens)
     res = {"rows": N, "Lmax": L, "qlen": qlen, **times,
            "kernel_mcups": cells / (times["kernel_ms"] * 1e3),
            "plain_mcups": cells / (times["plain_ms"] * 1e3),
-           "max_abs_err": max(s_err, d_err), **dp_bound((q, t, ln, bd), kern_out),
-           "card": card}
+           "max_abs_err": err, **dp_bound((q, t, ln, bd), kern_out),
+           "longest_live_steps": steps,
+           "us_per_wavefront_step": times["kernel_ms"] * 1e3 / max(steps, 1),
+           "backtrack": bt, "card": card}
+    res["share_of_bound"] = res["bound_ms"] / times["kernel_ms"]
+    if built:
+        res.update(kernel_build_info(built, "extd2"))
     say("kernel", **res)
     return res
 
@@ -366,24 +418,26 @@ def pe_dp_rows(P: int) -> int:
 
 
 def phase_kernel_fold(device, N: int, L: int, qlen: int, card: str,
-                      phase: str = "kernel_fold") -> dict:
-    """The folded kernel against its plain version, then fold and unfold
-    through their backtracks: the same ops and end points."""
+                      phase: str = "kernel_fold", built=None) -> dict:
+    """The folded kernel (four warps per kernel row at 256 lanes) against
+    its plain version, then the backtrack kernel on its folded dirs against the
+    plain folded walk, both equal to the plain walk of the unfolded dirs.
+    With ``built``: ptxas registers/spills and the DPX count."""
     import torch
 
     from gdiet_tpu_torch.ops import dp_fold, extd2
     from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
 
+    cuda = torch.device(device).type == "cuda"
     Q, T, lens, band = dp_pairs(N, L, qlen)
     q, t, ln, bd = (torch.from_numpy(a).to(device) for a in (Q, T, lens, band))
     kern_out, plain_out, times = kernel_vs_plain(
         lambda: extd2.extd2_batch(q, t, ln, bd, PARAMS, L, fold=True),
-        lambda: dp_fold.extd2_fold(q, t, ln, bd, PARAMS, L),
-        torch.device(device).type == "cuda")
+        lambda: dp_fold.extd2_fold(q, t, ln, bd, PARAMS, L), cuda)
     err = check_equal(kern_out, plain_out, DP_OUTPUTS, f"extd2_fold on {N} rows")
     unfold = extd2.extd2_batch(q, t, ln, bd, PARAMS, L)
     check(torch.equal(unfold[0], kern_out[0]), "folded and unfolded scores differ")
-    bt_f = backtrack_antidiag(kern_out[1], ln, bd, L, fold=True)
+    bt_f, bt = backtrack_vs_plain(kern_out[1], ln, bd, L, cuda, fold=True)
     bt_u = backtrack_antidiag(unfold[1], ln, bd, L)
     for name, a, b in zip(BT_OUTPUTS, bt_f, bt_u):
         check(torch.equal(a, b), f"folded and unfolded backtracks differ in {name}")
@@ -395,14 +449,122 @@ def phase_kernel_fold(device, N: int, L: int, qlen: int, card: str,
            "kernel_mcups": cells / (times["kernel_ms"] * 1e3),
            "plain_mcups": cells / (times["plain_ms"] * 1e3),
            "max_abs_err": err, "backtrack_equal_to_unfolded": True,
-           **dp_bound((q, t, ln, bd), kern_out), "card": card}
+           **dp_bound((q, t, ln, bd), kern_out),
+           "serial_wavefronts": (C + 1) * H,
+           "us_per_wavefront_step": times["kernel_ms"] * 1e3 / ((C + 1) * H),
+           "backtrack": bt, "card": card}
+    res["share_of_bound"] = res["bound_ms"] / times["kernel_ms"]
+    if built:
+        res.update(kernel_build_info(built, "extd2_fold"))
     say(phase, **res)
     return res
+
+
+def phase_prev(prev: pathlib.Path, card: str) -> dict:
+    """``--prev DIR``: the earlier sources of extd2.cu and extd2_fold.cu in
+    DIR (same C entry points), built beside the checkout's, each one nvcc,
+    started together. Each kernel is timed in turns against its earlier
+    source on the kernel phases' inputs (earlier, current, current,
+    earlier; each a median of KERNEL_ROUNDS rounds of KERNEL_REPS launches,
+    CUDA events); the two sources' outputs must be equal (exact)."""
+    import ctypes
+    import hashlib
+
+    import torch
+
+    from gdiet_tpu_torch.ops import extd2
+
+    build = extd2.BUILD_DIR / ("prev_" + hashlib.sha256(str(prev.resolve()).encode())
+                               .hexdigest()[:12])
+    build.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in ("extd2", "extd2_fold"):
+        so = build / f"{name}.so"
+        cmd = [extd2._nvcc(), *extd2.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so),
+               str(prev / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), so)
+    libs, logs = {}, {}
+    for name, (proc, so) in procs.items():
+        logs[name], _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"nvcc failed on the earlier {name}.cu:\n{logs[name]}")
+        lib = ctypes.CDLL(str(so))
+        entry, argtypes = extd2.ENTRIES[name]
+        getattr(lib, entry).restype = ctypes.c_int
+        getattr(lib, entry).argtypes = argtypes
+        libs[name] = lib
+
+    def rounds_ms(fn):
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(KERNEL_ROUNDS):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(KERNEL_REPS):
+                fn()
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1) / KERNEL_REPS)
+        return float(np.median(ms))
+
+    out = {}
+    for tag, name, N, fold in (("extd2", "extd2", KERNEL_SHAPE["N"], False),
+                               ("extd2_fold", "extd2_fold", KERNEL_SHAPE["N"], True),
+                               ("extd2_fold_pe", "extd2_fold", pe_dp_rows(PE_PAIRS), True)):
+        Q, T, lens, band = dp_pairs(N, KERNEL_SHAPE["L"], KERNEL_SHAPE["qlen"])
+        q, t, ln, bd = (torch.from_numpy(a).cuda() for a in (Q, T, lens, band))
+        L = KERNEL_SHAPE["L"]
+
+        def fn():
+            return extd2.extd2_batch(q, t, ln, bd, PARAMS, L, fold=fold)
+
+        cur = extd2._library(name)
+        for _ in range(3):
+            new_out = fn()
+        extd2._libs[name] = libs[name]
+        try:
+            for _ in range(3):
+                old_out = fn()
+            err = check_equal(old_out, new_out, DP_OUTPUTS, f"{tag}: earlier and current sources")
+            times = []
+            for lib in (libs[name], cur, cur, libs[name]):
+                extd2._libs[name] = lib
+                times.append(rounds_ms(fn))
+        finally:
+            extd2._libs[name] = cur
+        old_ms, new_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+        out[tag] = {"rows": N, "earlier_ms": old_ms, "current_ms": new_ms,
+                    "speedup": old_ms / new_ms, "turns_ms": times, "max_abs_err": err}
+    out["earlier_ptxas"] = {name: ptxas_info(log) for name, log in logs.items()}
+    out["earlier_sass"] = {name: sass_vi_ops(build / f"{name}.so") for name in libs}
+    say("prev", **out, source=str(prev), card=card)
+    return out
 
 
 def _map_sam(mapper, reads) -> list:
     sam = b"".join(bytes(b) for b in mapper.map_stream_sam(iter([reads])))
     return sam.decode().splitlines()
+
+
+def backtrack_counts_reset() -> None:
+    from gdiet_tpu_torch.ops import extd2
+    from gdiet_tpu_torch.pipeline import device_step
+
+    extd2.backtrack_launches.reset()
+    device_step.backtrack_calls.reset()
+
+
+def backtrack_counts(what: str, cuda: bool) -> tuple:
+    """(backtrack kernel launches, plain backtrack calls) since the last
+    reset; on the card the kernel must have run and the plain walk not."""
+    from gdiet_tpu_torch.ops import extd2
+    from gdiet_tpu_torch.pipeline import device_step
+
+    n, plain = extd2.backtrack_launches.n, device_step.backtrack_calls.n
+    if cuda:
+        check(n > 0, f"{what} launched no backtrack kernel")
+        check(plain == 0, f"{what} called the plain backtrack {plain} times")
+    return n, plain
 
 
 def phase_golden(device) -> dict:
@@ -411,6 +573,7 @@ def phase_golden(device) -> dict:
     from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
 
     out = {}
+    backtrack_counts_reset()
     for ref, reads, golden, pattern, lmax in (
             ("ref.fa", "reads.fq", "golden.sam", "10", 256),
             ("ref2.fa", "reads2.fq", "golden2_10.sam", "10", 512),
@@ -426,7 +589,9 @@ def phase_golden(device) -> dict:
         check(mine == gold, f"{golden}: {same}/{len(gold)} records equal "
               f"({len(mine)} produced)")
         out[golden] = len(gold)
-    say("golden", records=out, identical=True)
+    bt_n, bt_plain = backtrack_counts("the golden SR runs", device == "cuda")
+    say("golden", records=out, identical=True, backtrack_launches=bt_n,
+        plain_backtrack_calls=bt_plain)
     return out
 
 
@@ -479,6 +644,7 @@ def phase_main(device, B: int, n_timed: int, genome_len: int, card: str) -> dict
     # ---- the main path: counts reset just before, read just after ----
     extd2.launches.reset()
     dp.calls.reset()
+    backtrack_counts_reset()
     sam = _map_sam(mapper, batches[0])  # warm-up batch
     warm = dict(mapper.stats)
     t0 = time.perf_counter()
@@ -487,6 +653,7 @@ def phase_main(device, B: int, n_timed: int, genome_len: int, card: str) -> dict
     sync()
     wall = time.perf_counter() - t0
     launches, plain_calls = extd2.launches.n, dp.calls.n
+    bt_n, bt_plain = backtrack_counts("the main path", cuda)
     stats = mapper.stats
     if cuda:
         check(launches > 0, "the main path launched no extd2 kernel")
@@ -531,12 +698,14 @@ def phase_main(device, B: int, n_timed: int, genome_len: int, card: str) -> dict
                                         [r.qual or "" for r in batch])
     phases = per_phase(mapper, codes, lens, cuda, lambda dev, fetched: mapper._finish_sam(
         (batch, codes, lens, np.zeros(n, bool), np.arange(n), dev, blobs, n), 0, fetched))
+    step = step_dp_check(mapper, codes, lens, fold=False)
     res = {"reads": n_reads, "timed_reads": B * n_timed, "batch": B,
            "reads_per_s": B * n_timed / wall, "timed_wall_s": wall,
            "index_build_s": index_s,
            "fallback_reads": warm["fallback_reads"] + stats["fallback_reads"],
            "retried_reads": warm.get("retried_reads", 0) + stats.get("retried_reads", 0),
            "extd2_launches": launches, "plain_dp_calls": plain_calls,
+           "backtrack_launches": bt_n, "plain_backtrack_calls": bt_plain, **step,
            "mapped_reads": len(mapped), "mapped_at_origin": near / len(mapped),
            "unmapped_reads": len(unmapped),
            "unmapped_checked_by_oracle": min(len(unmapped), N_UNMAPPED_ORACLE),
@@ -544,6 +713,41 @@ def phase_main(device, B: int, n_timed: int, genome_len: int, card: str) -> dict
            "phase_ms": phases, "card": card}
     say("main", **res)
     return res
+
+
+def step_dp_check(mapper, codes, lens, fold: bool) -> dict:
+    """One batch's DP inputs, as the step hands them to ``extd2_batch``,
+    through the DP kernel and its plain version, then the DP outputs
+    through the backtrack kernel and the plain walk: all exact."""
+    from gdiet_tpu_torch.ops import dp, dp_fold, extd2
+    from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
+
+    seen = []
+    launch = extd2.extd2_batch
+
+    def spy(*args, **kw):
+        seen.append((args, kw))
+        return launch(*args, **kw)
+
+    extd2.extd2_batch = spy
+    try:
+        mapper.fused(codes, lens)
+    finally:
+        extd2.extd2_batch = launch
+    check(len(seen) == 1 and bool(seen[0][1].get("fold")) == fold,
+          f"the step made no {'folded' if fold else 'unfolded'} DP call")
+    (q, t, ln, bd, params, L), _ = seen[0]
+    check(tuple(params) == PARAMS, f"the step's scoring {params} is not {PARAMS}")
+    plain = dp_fold.extd2_fold if fold else dp.extd2_batch
+    got = extd2.extd2_batch(q, t, ln, bd, PARAMS, L, fold=fold)
+    what = "extd2_fold" if fold else "extd2"
+    dp_err = check_equal(got, plain(q, t, ln, bd, PARAMS, L), DP_OUTPUTS,
+                         f"{what} on the step's DP inputs")
+    bt_err = check_equal(extd2.backtrack_band(got[1], ln, ln, bd, L, L, fold=fold),
+                         backtrack_antidiag(got[1], ln, bd, L, fold=fold), BT_OUTPUTS,
+                         "backtrack_band on the step's DP outputs")
+    return {"step_dp_rows": int(q.shape[0]), "step_dp_live_rows": int((ln > 0).sum()),
+            "step_dp_max_abs_err": dp_err, "step_backtrack_max_abs_err": bt_err}
 
 
 def per_phase(mapper, codes, lens, cuda: bool, finish) -> dict:
@@ -591,16 +795,19 @@ def phase_golden_pe(card: str) -> dict:
     from gdiet_tpu_torch.testing import r1_vs_single_end, sam_body
 
     inputs = [str(DATA / f) for f in ("ref_pe.fa", "reads_pe_1.fq", "reads_pe_2.fq")]
-    runs = {}
+    runs, bt = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, device, fold in (("cuda_fold", "cuda", "1"), ("cpu_fold", "cpu", "1"),
                                    ("cuda_unfold", "cuda", "0")):
             os.environ["GDIET_DP_FOLD"] = fold
             n0 = extd2.fold_launches.n
+            backtrack_counts_reset()
             out = pathlib.Path(tmp) / f"{name}.sam"
             check(cli.main(["--device", device, *PE_ARGS, "-o", str(out), *inputs]) == 0,
                   f"PE CLI on {device} (fold {fold}) failed")
             runs[name] = sam_body(out)
+            if device == "cuda":
+                bt[name] = backtrack_counts(f"the PE CLI ({name})", True)
             if name == "cuda_fold":
                 check(extd2.fold_launches.n > n0, "the PE CLI launched no fold kernel")
     os.environ.pop("GDIET_DP_FOLD")
@@ -612,7 +819,8 @@ def phase_golden_pe(card: str) -> dict:
     check(not bad, f"R1 records {bad[:5]} differ from golden_pe_r1.sam")
     check(n_checked > 200, f"only {n_checked} R1 records checked")
     res = {"records": len(ref), "identical_cpu_and_unfolded": True,
-           "r1_checked_against_golden": n_checked, "card": card}
+           "r1_checked_against_golden": n_checked,
+           "backtrack_launches_and_plain_calls": bt, "card": card}
     say("golden_pe", **res)
     return res
 
@@ -686,6 +894,7 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
     counts = (extd2.launches, extd2.fold_launches, dp.calls, dp_fold.calls)
     for c in counts:
         c.reset()
+    backtrack_counts_reset()
     sam = run(mapper, batches[:1])  # warm-up batch
     first_batch = list(sam)
     warm = dict(mapper.stats)
@@ -694,6 +903,7 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
     sync()
     wall = time.perf_counter() - t0
     unfold_launches, fold_launches, plain_calls, plain_fold_calls = (c.n for c in counts)
+    bt_n, bt_plain = backtrack_counts("the PE path", cuda)
     if cuda:
         check(fold_launches > 0, "the PE path launched no extd2_fold kernel")
         check(plain_fold_calls == 0 and plain_calls == 0,
@@ -730,8 +940,10 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
     oracle = b"".join(mapper._oracle_sam_pe(p, 0) for p in pairs[:PE_ORACLE]).decode().splitlines()
     mine = [l for n in range(PE_ORACLE) for l in by_name[f"p{n}"]]
     check(mine == oracle, "SAM of the first pairs differs from the oracle's PE finish")
+    backtrack_counts_reset()
     check(run(unfolded, batches[:1]) == first_batch,
           "the first batch's SAM differs with the fold off")
+    bt_unfold = backtrack_counts("the PE path with the fold off", cuda)
 
     # ---- per-phase device times of one batch ----
     state = mapper._prepare_pe(batches[1], P)
@@ -740,33 +952,17 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
     phases = per_phase(mapper, codes, lens, cuda, lambda dev, fetched: mapper._finish_pe(
         (*state[:4], dev, *state[5:]), 0, fetched))
 
-    # ---- the fold kernel on the DP inputs the step gives it ----
-    seen = []
-    launch = extd2.extd2_batch
-
-    def spy(*args, **kw):
-        seen.append((args, kw))
-        return launch(*args, **kw)
-
-    extd2.extd2_batch = spy
-    try:
-        mapper.fused(codes, lens)
-    finally:
-        extd2.extd2_batch = launch
-    check(len(seen) == 1 and seen[0][1].get("fold"), "the step made no folded DP call")
-    (q, t, ln, bd, params, L), _ = seen[0]
-    check(tuple(params) == PARAMS, f"the step's scoring {params} is not {PARAMS}")
-    path_err = check_equal(extd2.extd2_batch(q, t, ln, bd, PARAMS, L, fold=True),
-                           dp_fold.extd2_fold(q, t, ln, bd, PARAMS, L), DP_OUTPUTS,
-                           "extd2_fold on the PE step's DP inputs")
+    # ---- the fold and backtrack kernels on the DP inputs the step gives them ----
+    step = step_dp_check(mapper, codes, lens, fold=True)
     res = {"pairs": n_pairs, "timed_pairs": P * n_timed, "batch_pairs": P,
            "pairs_per_s": P * n_timed / wall, "timed_wall_s": wall,
            "fallback_pairs": warm["fallback_reads"] + mapper.stats["fallback_reads"],
            "extd2_fold_launches": fold_launches, "extd2_launches": unfold_launches,
            "plain_dp_calls": plain_calls, "plain_fold_calls": plain_fold_calls,
+           "backtrack_launches": bt_n, "plain_backtrack_calls": bt_plain,
+           "fold_off_backtrack_launches_and_plain_calls": bt_unfold,
            "pairs_both_mapped": both / n_pairs, "mapped_at_origin": near / len(mapped),
-           "step_dp_rows": int(q.shape[0]), "step_dp_live_rows": int((ln > 0).sum()),
-           "step_dp_max_abs_err": path_err,
+           **step,
            "oracle_pairs_equal": PE_ORACLE, "first_batch_equal_unfolded": True,
            "phase_ms": phases, "card": card}
     say("pe", **res)
@@ -1122,9 +1318,16 @@ def phase_lr(device, n_timed: int, genome_len: int, card: str, B: int = LR_BATCH
     return res
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="On-card smoke run of gdiet_tpu_torch.")
+    ap.add_argument("--prev", type=pathlib.Path, default=None,
+                    help="a directory with earlier extd2.cu and extd2_fold.cu sources: "
+                         "time them in turns against the checkout's")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA device: this smoke run needs a GPU", file=sys.stderr)
         return 2
@@ -1135,10 +1338,12 @@ def main() -> int:
     built = phase_build()
     say("device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
         build_s={name: b[1] for name, b in built.items()})
-    k = phase_kernel("cuda", card=card, **KERNEL_SHAPE)
-    kf = phase_kernel_fold("cuda", card=card, **KERNEL_SHAPE)
+    k = phase_kernel("cuda", card=card, built=built, **KERNEL_SHAPE)
+    kf = phase_kernel_fold("cuda", card=card, built=built, **KERNEL_SHAPE)
     kf_pe = phase_kernel_fold("cuda", card=card, phase="kernel_fold_pe",
                               **{**KERNEL_SHAPE, "N": pe_dp_rows(PE_PAIRS)})
+    if args.prev is not None:
+        phase_prev(args.prev, card)
     phase_golden("cuda")
     m = phase_main("cuda", BENCH_B, N_TIMED, GENOME_LEN, card)
     phase_golden_pe(card)
@@ -1152,7 +1357,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "extd2", "route": "cuda", "source": src + "extd2.cu",
          "replaces": "gdiet_tpu/ops/dp_pallas.py:170",
-         "launches": m["extd2_launches"], "max_abs_err": k["max_abs_err"],
+         "launches": m["extd2_launches"],
+         "max_abs_err": max(k["max_abs_err"], m["step_dp_max_abs_err"],
+                            kb["full_width_bucket"]["max_abs_err"]),
          "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
          **{x: k[x] for x in bound_keys}, "library_ms": None},
         {"name": "extd2_band", "route": "cuda", "source": src + "extd2_band.cu",
@@ -1171,11 +1378,16 @@ def main() -> int:
          **{x: kf[x] for x in bound_keys}, "library_ms": None},
         {"name": "backtrack_band", "route": "cuda", "source": src + "backtrack_band.cu",
          "replaces": "gdiet_tpu/pipeline/device_step.py:452",
-         "launches": lr["backtrack_launches"],
+         "launches": m["backtrack_launches"] + pe["backtrack_launches"]
+         + lr["backtrack_launches"],
          "max_abs_err": max([r["backtrack"]["max_abs_err"] for r in kb["runs"]]
-                            + [lr["step_dp"]["backtrack_max_abs_err"]]),
-         "ms": hifi["backtrack"]["kernel_ms"], "plain_ms": hifi["backtrack"]["plain_ms"],
-         **{x: hifi["backtrack"][x] for x in bound_keys}, "library_ms": None},
+                            + [k["backtrack"]["max_abs_err"], kf["backtrack"]["max_abs_err"],
+                               kf_pe["backtrack"]["max_abs_err"],
+                               m["step_backtrack_max_abs_err"],
+                               pe["step_backtrack_max_abs_err"],
+                               lr["step_dp"]["backtrack_max_abs_err"]]),
+         "ms": k["backtrack"]["kernel_ms"], "plain_ms": k["backtrack"]["plain_ms"],
+         **{x: k["backtrack"][x] for x in bound_keys}, "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

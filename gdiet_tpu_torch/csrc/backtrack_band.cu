@@ -1,16 +1,24 @@
 // Antidiagonal backtrack (ksw_backtrack, ksw2.h:131-163) of the DP
 // direction bytes, for NVIDIA Hopper (sm_90a).
 //
-// Replaces gdiet_tpu/pipeline/device_step.py::_backtrack_antidiag on the
-// long-read DP buckets (an XLA scan there, not a Pallas kernel). It writes
-// exactly what gdiet_tpu_torch/pipeline/device_step.py::backtrack_antidiag
-// writes for the same dirs: ops[N][Rpad] back to front, the op taken on
-// antidiagonal r at column Rpad-1-r, 255 on every other column, and the
-// walk's end point (fin_i, fin_j). Two dirs layouts are read:
-//   - the banded window of csrc/extd2_band.cu, dirs[N][R][WB]: lane i of
-//     wavefront r sits at column clip(i - lo_al(r), 0, WB-1), with
-//     lo_al(r) the window base of the grid step r0 = r / unroll * unroll;
-//   - the full width of csrc/extd2.cu, dirs[N][R][Wd]: column clip(i).
+// Replaces gdiet_tpu/pipeline/device_step.py::_backtrack_antidiag (an XLA
+// scan there, not a Pallas kernel) on every path: the short-read step
+// (single-end and paired-end, folded or not) and the long-read DP buckets.
+// It writes exactly what
+// gdiet_tpu_torch/pipeline/device_step.py::backtrack_antidiag writes for
+// the same dirs: ops[N][Rpad] back to front, the op taken on antidiagonal r
+// at column Rpad-1-r, 255 on every other column, and the walk's end point
+// (fin_i, fin_j). Lane i of antidiagonal r sits at column
+// clip(i - lo(r), 0, Wd-1) of row r, in one of three layouts
+// (ops/dp_band.py::lane_offset gives lo):
+//   - the banded window of csrc/extd2_band.cu, dirs[N][R][WB]: lo(r) is
+//     the window base lo_al of the grid step r0 = r / unroll * unroll;
+//   - the full width of csrc/extd2.cu, dirs[N][R][Wd]: lo(r) = 0;
+//   - the raw folded layout of csrc/extd2_fold.cu,
+//     dirs[(C+1)*H][Nrows][Wd]: candidate n = c*Nrows + k reads row r from
+//     slice c*H + r, so its rows start at ((n / Nrows)*H*Nrows + n % Nrows)
+//     * Wd and lie Nrows*Wd apart; lo(r) = -32 (the fold's lane gap) for
+//     r >= H, else 0. With H = R and Nrows = 1 this is the full width.
 //
 // The plain version steps all candidates in lock-step over r = R-1 .. 0 and
 // a candidate acts only where i + j == r; every act lowers i + j, so a
@@ -23,7 +31,7 @@
 // lane knows where the walk stands when the warp stages the next tile:
 //   - Within K steps the walk lowers r by K to 2K and i by at most K, so
 //     every byte it can read lies in rows [r - 2K + 1, r] and, in row rr,
-//     in columns clip([i - K + 1, i] - lo_al(rr), 0, Wd - 1):
+//     in columns clip([i - K + 1, i] - lo(rr), 0, Wd - 1):
 //     ops/dp_band.py::backtrack_tile, which tests/test_torch_band.py
 //     holds against the plain walk. With K = kLook = 32: 64 rows of at
 //     most 48 bytes (the columns widened to 16-byte chunks).
@@ -62,17 +70,23 @@ constexpr int kTile = kRows * kSlot;
 // (and before antidiagonal 0) are never staged, and the walk never
 // steps onto them within a block
 constexpr int kRowsPad = kRows + 2;
+constexpr int kFoldGap = 32;  // the folded layout's lane gap (ops/dp_fold.py)
 // per ns (the ksw state 0-4): CIGAR op (2 bits each; CIGAR_MATCH 0,
 // CIGAR_INS 1, CIGAR_DEL 2 of ops/dp.py), whether i and j step down
 constexpr unsigned kOpOf = 0u | (2u << 2) | (1u << 4) | (2u << 6) | (1u << 8);
 constexpr unsigned kStepI = 0b01011u;  // ns 0, 1, 3
 constexpr unsigned kStepJ = 0b10101u;  // ns 0, 2, 4
 
-__device__ __forceinline__ int window_lo(int r, int WB, int w_max, int umask,
-                                         int T) {
-  if (WB == 0) return 0;
-  const int r0 = r & ~umask;  // unroll is a power of two
-  const int lo = ((r0 - w_max + 1) >> 1) - 16;
+// lo(r) of the layout (see the top of the file)
+struct Layout {
+  int Wd, T, WB, w_max, umask, H;
+};
+
+__device__ __forceinline__ int row_lo(int r, const Layout& L) {
+  if (L.WB == 0) return r >= L.H ? -kFoldGap : 0;
+  const int WB = L.WB, T = L.T;
+  const int r0 = r & ~L.umask;  // unroll is a power of two
+  const int lo = ((r0 - L.w_max + 1) >> 1) - 16;
   return min(max(lo, 0), T - WB) & ~127;
 }
 
@@ -91,18 +105,19 @@ struct Cand {
 
 // backtrack_tile(rb, ib, kLook) of ops/dp_band.py, copied into buf: row rr
 // at slot rb - rr, from column tile_col0 on; rows[slot] = the row's
-// (off_r, off_end, lo_al, first staged column), the band limits that force
-// the op as ops/dp.py::band_geometry gives them
+// (off_r, off_end, lo, first staged column), the band limits that force
+// the op as ops/dp.py::band_geometry gives them. The candidate's row rr
+// starts at drow + rr * rstride.
 __device__ __forceinline__ void stage_tile(uint8_t* buf, int4* rows,
                                            const uint8_t* __restrict__ drow,
-                                           int rb, int ib, int Wd, int WB,
-                                           int w_max, int umask, int T,
-                                           Cand c) {
+                                           size_t rstride, int rb, int ib,
+                                           const Layout& L, Cand c) {
   const int lane = threadIdx.x;
+  const int Wd = L.Wd, T = L.T;
   for (int sl = lane; sl < kRows; sl += 32) {
     const int rr = rb - sl;
     if (rr < 0) break;
-    const int lo = window_lo(rr, WB, w_max, umask, T);
+    const int lo = row_lo(rr, L);
     const int c0 = tile_col0(ib, lo, Wd);
     const int st0 = __vimax3_s32(0, rr - c.qlen + 1, (rr - c.w + 1) >> 1);
     const int en0 = __vimin3_s32(c.tlen - 1, rr, (rr + c.w) >> 1);
@@ -110,7 +125,7 @@ __device__ __forceinline__ void stage_tile(uint8_t* buf, int4* rows,
     rows[sl] = make_int4(live ? (st0 & ~15) : T,
                          live ? min(((en0 + 16) & ~15) - 1, T - 1) : -1, lo, c0);
     const int c_hi = clip(ib - lo, Wd);
-    const uint8_t* src = drow + (size_t)rr * Wd;
+    const uint8_t* src = drow + (size_t)rr * rstride;
     const unsigned dst =
         (unsigned)__cvta_generic_to_shared(buf + sl * kSlot);
 #pragma unroll
@@ -136,8 +151,8 @@ backtrack_band_kernel(const uint8_t* __restrict__ dirs,
                       const int32_t* __restrict__ tlens,
                       const int32_t* __restrict__ bands,
                       uint8_t* __restrict__ ops, int32_t* __restrict__ fin_i,
-                      int32_t* __restrict__ fin_j, int R, int Wd, int T,
-                      int Rpad, int WB, int w_max, int umask) {
+                      int32_t* __restrict__ fin_j, int Rpad, int Nrows,
+                      Layout L) {
   extern __shared__ __align__(16) uint8_t sm[];
   int4* rows = reinterpret_cast<int4*>(sm);          // [2][kRowsPad]
   uint8_t* tiles = sm + 2 * kRowsPad * sizeof(int4);  // [2][kTile]
@@ -145,7 +160,12 @@ backtrack_band_kernel(const uint8_t* __restrict__ dirs,
   const int n = blockIdx.x;
   const int lane = threadIdx.x;
   const Cand cand{qlens[n], tlens[n], bands[n]};
-  const uint8_t* drow = dirs + (size_t)n * R * Wd;
+  const int Wd = L.Wd;
+  // the candidate's row 0 and the distance between its rows: n = c*Nrows +
+  // k reads slice c*H + r at row k (Nrows = 1, H = R: dirs[n][r])
+  const size_t rstride = (size_t)Nrows * Wd;
+  const uint8_t* drow =
+      dirs + ((size_t)(n / Nrows) * L.H * Nrows + n % Nrows) * Wd;
   for (int k = lane; k < Rpad / 8; k += 32)
     reinterpret_cast<uint2*>(sops)[k] = make_uint2(~0u, ~0u);
 
@@ -160,10 +180,10 @@ backtrack_band_kernel(const uint8_t* __restrict__ dirs,
     const int4* trows = rows + wb * kRowsPad;
     if (blk > 0) wait_tiles();  // tile blk-1 has landed; tile blk-2 is walked
     stage_tile(tiles + (blk & 1) * kTile, rows + (blk & 1) * kRowsPad, drow,
-               i + j, i, Wd, WB, w_max, umask, T, cand);
+               rstride, i + j, i, L, cand);
     sr = i + j;
     if (blk == 0) wait_tiles();  // block 0 walks its own tile
-    // the current row's (off_r, off_end, lo_al, first column); each step
+    // the current row's (off_r, off_end, lo, first column); each step
     // loads the two rows the next step can be on before it knows which
     int4 rw = trows[rb - (i + j)];
     for (int step = 0; step < kBlk && active; ++step) {
@@ -202,20 +222,25 @@ backtrack_band_kernel(const uint8_t* __restrict__ dirs,
 
 }  // namespace
 
-// C entry point (bound with ctypes). Device pointers; WB = 0 reads the
-// full-width layout, WB > 0 the banded window of width WB (= Wd) built
-// with band budget w_max and `unroll` (a power of two) wavefronts per grid
-// step. Wd must be a multiple of 16 (round16(Lt) or WB) and Rpad of 8.
-// Launches on `stream` and returns a CUDA error code.
+// C entry point (bound with ctypes). Device pointers; R antidiagonals per
+// walk, T = round128(Lt) for the band limits. WB > 0 reads the banded
+// window of width WB (= Wd) built with band budget w_max and `unroll` (a
+// power of two) wavefronts per grid step; WB = 0 the folded layout of H
+// wavefronts per pass and Nrows kernel rows (R = 2H), which with H = R and
+// Nrows = 1 is the full width. Wd must be a multiple of 16 (round16(Lt),
+// WB or the fold's lane width) and Rpad of 8. Launches on `stream` and
+// returns a CUDA error code.
 extern "C" int gdiet_backtrack_band(const void* dirs, const void* qlens,
                                     const void* tlens, const void* bands,
                                     void* ops, void* fin_i, void* fin_j,
                                     int64_t N, int64_t R, int64_t Wd, int64_t T,
-                                    int64_t Rpad, int64_t WB, int w_max,
-                                    int unroll, void* stream) {
+                                    int64_t Rpad, int64_t WB, int64_t H,
+                                    int64_t Nrows, int w_max, int unroll,
+                                    void* stream) {
   if (N <= 0) return 0;
   if (Wd <= 0 || Wd % 16 != 0 || Rpad % 8 != 0 || Rpad < R || unroll <= 0 ||
-      (unroll & (unroll - 1)) != 0)
+      (unroll & (unroll - 1)) != 0 || Nrows <= 0 || H <= 0 ||
+      (WB == 0 && R > 2 * H) || (WB > 0 && (Nrows != 1 || H != R)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t shm = 2 * (kRowsPad * sizeof(int4) + (size_t)kTile) + (size_t)Rpad;
@@ -229,7 +254,7 @@ extern "C" int gdiet_backtrack_band(const void* dirs, const void* qlens,
       static_cast<const uint8_t*>(dirs), static_cast<const int32_t*>(qlens),
       static_cast<const int32_t*>(tlens), static_cast<const int32_t*>(bands),
       static_cast<uint8_t*>(ops), static_cast<int32_t*>(fin_i),
-      static_cast<int32_t*>(fin_j), (int)R, (int)Wd, (int)T, (int)Rpad,
-      (int)WB, w_max, unroll - 1);
+      static_cast<int32_t*>(fin_j), (int)Rpad, (int)Nrows,
+      Layout{(int)Wd, (int)T, (int)WB, w_max, unroll - 1, (int)H});
   return (int)cudaGetLastError();
 }

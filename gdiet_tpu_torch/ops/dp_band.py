@@ -34,6 +34,7 @@ from gdiet_tpu_torch.ops.dp import (NEG_INF, band_geometry, boundary_u,
 
 DP_UNROLL = 4  # wavefronts per Pallas grid step (the short-read default)
 LR_UNROLL = 8  # the long-read buckets' unroll (pipeline/longread.py:569)
+FOLD_GAP = 32  # lane gap between the folded layout's two half-diamonds (ops/dp_fold.py)
 
 calls = LaunchCount()
 
@@ -63,20 +64,32 @@ def window_base(r0: int, band_budget: int, T: int, WB: int) -> int:
     return min(max(lo_raw, 0), T - WB) // 128 * 128
 
 
+def lane_offset(rr: int, T: int, WB: int | None = None, band_budget: int | None = None,
+                unroll: int = LR_UNROLL, H: int | None = None) -> int:
+    """lo(rr): the lane that column 0 of dirs row rr holds, so that lane i
+    sits at column clip(i - lo(rr), 0, Wd - 1). The window base of rr's
+    grid step in the banded layout (WB set); -FOLD_GAP for the second half
+    (rr >= H) in the folded layout (H set); 0 in the full width."""
+    if WB is not None:
+        return window_base(rr // unroll * unroll, band_budget, T, WB)
+    return -FOLD_GAP if H is not None and rr >= H else 0
+
+
 def backtrack_tile(r: int, i: int, K: int, Wd: int, T: int, WB: int | None = None,
-                   band_budget: int | None = None, unroll: int = LR_UNROLL):
+                   band_budget: int | None = None, unroll: int = LR_UNROLL,
+                   H: int | None = None):
     """The dirs bytes a backtrack walk at antidiagonal r, lane i can read in
     its next K steps, the rule ``csrc/backtrack_band.cu`` stages its tiles
     by. Each step lowers r by 1 or 2 and i by 0 or 1, so the rows are
     [r - 2K + 1, r] and the lanes [i - K + 1, i]; row rr maps lanes to
-    columns as the walk does, clip(lane - lo_al(rr), 0, Wd - 1), with lo_al
-    the window base of rr's grid step (0 in the full-width layout, WB
-    None). Returns (r_lo, r_hi, col_lo, col_hi): col_lo[k] .. col_hi[k]
+    columns as the walk does, clip(lane - lane_offset(rr), 0, Wd - 1), in
+    each of the three layouts (banded with WB, folded with H, else full
+    width). Returns (r_lo, r_hi, col_lo, col_hi): col_lo[k] .. col_hi[k]
     are row r_lo + k's columns."""
     r_lo = max(r - 2 * K + 1, 0)
     col_lo, col_hi = [], []
     for rr in range(r_lo, r + 1):
-        lo = 0 if WB is None else window_base(rr // unroll * unroll, band_budget, T, WB)
+        lo = lane_offset(rr, T, WB, band_budget, unroll, H)
         col_lo.append(min(max(i - K + 1 - lo, 0), Wd - 1))
         col_hi.append(min(max(i - lo, 0), Wd - 1))
     return r_lo, r, col_lo, col_hi

@@ -30,9 +30,8 @@ import torch
 from gdiet_tpu_torch.ops import LaunchCount
 from gdiet_tpu_torch.ops import dp
 from gdiet_tpu_torch.ops.dp import boundary_u, round_up
-from gdiet_tpu_torch.ops.dp_band import DP_UNROLL, window_geometry
+from gdiet_tpu_torch.ops.dp_band import DP_UNROLL, FOLD_GAP, window_geometry
 
-FOLD_GAP = 32  # lane gap between the two resident half-diamonds
 FOLD_PASSES = 16  # target candidates per kernel row
 
 calls = LaunchCount()

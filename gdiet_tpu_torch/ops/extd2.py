@@ -9,7 +9,8 @@ With ``band_budget`` set and a lane window narrower than round128(Lt)
 ``ops/dp_band.py::extd2_band`` returns; with ``fold=True`` what
 ``ops/dp_fold.py::extd2_fold`` returns (the raw folded dirs layout);
 otherwise what ``ops/dp.py::extd2_batch`` returns. ``backtrack_band`` walks
-the banded or full-width dirs of a long-read bucket.
+the dirs of any of the three layouts: the short-read step's (full width or
+folded) and the long-read buckets' (banded or full width).
 
 For CUDA tensors each launches its hand-written kernel (built with ``nvcc``
 for ``sm_90a`` at first use and bound with ctypes); for CPU tensors it runs
@@ -101,7 +102,7 @@ ENTRIES = {
     "extd2": ("gdiet_extd2", [_P] * 7 + [_I64] * 5 + [_I] * 8 + [_P]),
     "extd2_fold": ("gdiet_extd2_fold", [_P] * 7 + [_I64] * 8 + [_I] * 8 + [_P]),
     "extd2_band": ("gdiet_extd2_band", [_P] * 7 + [_I64] * 6 + [_I] * 10 + [_P]),
-    "backtrack_band": ("gdiet_backtrack_band", [_P] * 7 + [_I64] * 6 + [_I] * 2 + [_P]),
+    "backtrack_band": ("gdiet_backtrack_band", [_P] * 7 + [_I64] * 8 + [_I] * 2 + [_P]),
 }
 
 
@@ -232,28 +233,43 @@ def _extd2_band(query, target, lens, tlens, band, scoring, Lmax: int, Lt: int,
 
 
 def backtrack_band(dirs, lens, tlens, band, Lmax: int, Lt: int,
-                   band_budget: int | None = None, unroll: int = dp_band.DP_UNROLL):
-    """Backtrack of a long-read bucket's dirs: the windowed layout of
-    ``extd2_band`` when ``band_budget``'s window engages at (Lt, unroll),
-    else the full-width layout of ``extd2``. Returns (ops [N, Rpad] u8,
-    fin_i [N] i32, fin_j [N] i32) as
-    ``pipeline/device_step.py::backtrack_antidiag`` does, which is what
-    CPU tensors run; CUDA tensors launch ``csrc/backtrack_band.cu``."""
+                   band_budget: int | None = None, unroll: int = dp_band.DP_UNROLL,
+                   fold: bool = False):
+    """Backtrack of the dirs of one DP call, in its layout: the raw folded
+    layout of ``extd2_fold`` ([(C+1)*H, Nrows, T], N taken from ``lens``)
+    with ``fold=True``; else the windowed layout of ``extd2_band`` when
+    ``band_budget``'s window engages at (Lt, unroll); else the full width
+    of ``extd2`` ([N, R, round16(Lt)]). Returns (ops [N, Rpad] u8, fin_i
+    [N] i32, fin_j [N] i32) as ``pipeline/device_step.py::backtrack_antidiag``
+    does, which is what CPU tensors run; CUDA tensors launch
+    ``csrc/backtrack_band.cu``."""
     if dirs.device.type == "cpu":
         from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
 
-        return backtrack_antidiag(dirs, lens, band, Lmax, tlens=tlens, Lt=Lt,
+        return backtrack_antidiag(dirs, lens, band, Lmax, tlens=tlens, Lt=Lt, fold=fold,
                                   band_budget=band_budget, unroll=unroll)
     if dirs.device.type != "cuda":
         raise ValueError(f"backtrack_band: unsupported device {dirs.device}")
-    N, R, Wd = dirs.shape
+    N = lens.shape[0]
     dev = dirs.device
-    T = dp.round_up(Lt, 128)
-    WB = (dp_band.window_geometry(band_budget, T, unroll)
-          if band_budget is not None else None)
-    if WB is not None and WB != Wd:
-        raise ValueError(f"backtrack_band: dirs are {Wd} lanes wide, the window {WB}")
-    _check("dirs", dirs, torch.uint8, (N, R, Wd), dev)
+    T = dp.round_up(Lt, 128)  # the band limits' lane range
+    WB = None
+    if fold:
+        if band_budget is not None:
+            raise ValueError("backtrack_band: the banded lane window and the fold "
+                             "exclude each other")
+        H, Wd, _ = dp_fold.fold_geometry(Lmax, Lt)
+        _, Nrows, C = dp_fold.fold_split(N, Wd)
+        shape, R = ((C + 1) * H, Nrows, Wd), 2 * H
+    else:
+        WB = (dp_band.window_geometry(band_budget, T, unroll)
+              if band_budget is not None else None)
+        if WB is None:
+            Wd, R = dp.round16(Lt), Lmax + Lt - 1
+        else:
+            Wd, R = WB, dp_band.band_shape(Lmax, Lt, band_budget, unroll)[1]
+        shape, H, Nrows = (N, R, Wd), R, 1
+    _check("dirs", dirs, torch.uint8, shape, dev)
     for name, t in (("lens", lens), ("tlens", tlens), ("band", band)):
         _check(name, t, torch.int32, (N,), dev)
     if dirs.data_ptr() % 16:
@@ -268,7 +284,7 @@ def backtrack_band(dirs, lens, tlens, band, Lmax: int, Lt: int,
             rc = lib.gdiet_backtrack_band(
                 dirs.data_ptr(), lens.data_ptr(), tlens.data_ptr(),
                 band.data_ptr(), ops.data_ptr(), fin_i.data_ptr(),
-                fin_j.data_ptr(), N, R, Wd, T, Rpad, WB or 0,
+                fin_j.data_ptr(), N, R, Wd, T, Rpad, WB or 0, H, Nrows,
                 band_budget or 0, unroll, _stream(dev))
         if rc != 0:
             raise RuntimeError(f"backtrack_band kernel launch failed: CUDA error {rc}")

@@ -5,9 +5,9 @@ stages of mm_map_frag, GDiet-ShortReads/map.c:586-1010): shift inference
 + query sketch (merged for an absolute ``-i``, in two phases for a
 fractional one), cuckoo seed lookup, mm_seed_select, query-occ check, hit
 expansion and per-strand sort, run vote, window geometry and gathers,
-exact/substitution-only shortcuts, DP-row compaction, banded DP
-(``ops/extd2.py``: the CUDA kernels on the card, the plain versions on the
-CPU; folded when ``StepConfig.dp_fold``), antidiagonal backtrack and output
+exact/substitution-only shortcuts, DP-row compaction, banded DP and
+antidiagonal backtrack (``ops/extd2.py``: the CUDA kernels on the card, the
+plain versions on the CPU; folded when ``StepConfig.dp_fold``) and output
 packing. The outputs — meta [B, 3+12K] int32 and 2-bit packed ops — are
 byte-identical to ``fused_map_step``'s, so ``native.sr_finish_batch`` and
 ``native.pe_finish_batch`` consume them unchanged.
@@ -21,11 +21,12 @@ CPU too, through the plain fold version.
 uint64 values are int64 bit patterns (``gdiet_tpu_torch/u64.py``). TPU
 gather workarounds (one-hot matmul selects, chunk-row window gathers) are
 plain gathers here, with indices clamped explicitly where JAX clamps
-silently. The vote scan and the backtrack are plain torch loops.
+silently. The vote scan is a plain torch loop.
 
-``backtrack_antidiag`` also reads the banded-window dirs of the long-read
-buckets (``ops/dp_band.py``); ``collect_hits`` is the long-read front's too
-(``pipeline/lr_step.py``).
+``backtrack_antidiag`` is the plain version of ``csrc/backtrack_band.cu``
+for every dirs layout: full width and folded (this step) and the banded
+window of the long-read buckets (``ops/dp_band.py``). ``collect_hits`` is
+the long-read front's too (``pipeline/lr_step.py``).
 
 Not ported yet (ROADMAP): the sharded ``ref_axis`` path, the bisect probe,
 ``fuse_out_device`` (a TPU-link transfer trick) and the five-stage re-run
@@ -716,7 +717,9 @@ def fused_map_step(codes, lens, tables: dict, cfg: StepConfig,
     score = torch.where(sub_only, (a_ * (length - mism) - b_ * mism).to(I32), score)
     score = torch.where(exact, (qlen * cfg.match_a).to(I32), score)
 
-    ops2, fin_i2, fin_j2 = backtrack_antidiag(dirs, len2, band2, L, fold=cfg.dp_fold)
+    # SR windows have tlen = qlen
+    ops2, fin_i2, fin_j2 = extd2.backtrack_band(dirs, len2, len2, band2, L, L,
+                                                fold=cfg.dp_fold)
     fin_i = torch.where(need, fin_i2[rank_c], 0)
     fin_j = torch.where(need, fin_j2[rank_c], 0)
     pad = (-ops2.shape[1]) % 4

@@ -17,9 +17,10 @@ on a CPU; with it off, seconds. The outputs are integers, and at unroll 4
 the two runs agree byte for byte.
 Two invariants the CUDA kernels are built on are held against the Pallas
 kernel and the plain walk here: every dirs row from wavefront qlen+tlen-1
-on (all rows of a qlen-0 candidate) is zero, so ``extd2_band.cu`` ends a
-candidate there; and ``dp_band.backtrack_tile`` covers every byte the walk
-reads, so ``backtrack_band.cu`` can stage its tiles by it.
+on (all rows of a qlen-0 candidate) is zero, in the windowed mode and at
+full width, so ``extd2_band.cu`` and ``extd2.cu`` end a candidate there;
+and ``dp_band.backtrack_tile`` covers every byte the walk reads, so
+``backtrack_band.cu`` can stage its tiles by it.
 The CUDA kernels (``csrc/extd2_band.cu``, ``csrc/backtrack_band.cu``) are
 held against the plain versions on a card: ``python -m pytest --noconftest
 -m cuda tests/test_torch_band.py``.
@@ -67,6 +68,8 @@ def _pairs(seed, N, Lmax, Lt):
 
 # name: (seed, N, Lmax, Lt, band_budget, unroll); WB = 256 in both
 CASES = {"unroll8": (5, 8, 256, 512, 64, 8), "unroll4": (7, 6, 160, 384, 48, 4)}
+# (seed, N, Lmax, Lt) of a full-width Pallas run (no band budget)
+FULL_PALLAS = (9, 6, 48, 64)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
@@ -75,6 +78,14 @@ def _inputs(name):
     Q, T, lens, tlens = _pairs(seed, N, Lmax, Lt)
     band = np.full(N, bb, np.int32)
     band[1::3] = bb // 2
+    return Q, T, lens, band, tlens
+
+
+def _full_pallas_inputs():
+    seed, N, Lmax, Lt = FULL_PALLAS
+    Q, T, lens, tlens = _pairs(seed, N, Lmax, Lt)
+    band = np.full(N, 40, np.int32)
+    band[1::3] = 12
     return Q, T, lens, band, tlens
 
 
@@ -94,6 +105,13 @@ def run_pallas(path):
                                  Lt=Lt, band_budget=bb, interpret=True, unroll=U)
         for key, a in zip(("score", "dirs", "offs", "off_ends"), res):
             arrays[f"{name}/{key}"] = np.asarray(a)
+    _, _, Lmax, Lt = FULL_PALLAS
+    Q, T, lens, band, tlens = _full_pallas_inputs()
+    res = extd2_batch_pallas(jnp.asarray(Q), jnp.asarray(T), jnp.asarray(lens),
+                             jnp.asarray(band), PARAMS, Lmax, tlens=jnp.asarray(tlens),
+                             Lt=Lt, interpret=True)
+    for key, a in zip(("score", "dirs", "offs", "off_ends"), res):
+        arrays[f"full_width/{key}"] = np.asarray(a)
     np.savez(path, **arrays)
 
 
@@ -121,6 +139,9 @@ def pallas(tmp_path_factory):
                                  Lmax, tlens=jnp.asarray(tlens), Lt=Lt, band_budget=bb,
                                  unroll=U)
         out[name] = (inp, ref, [np.asarray(a) for a in bt])
+    out["full_width"] = (_full_pallas_inputs(),
+                         [z[f"full_width/{key}"] for key in ("score", "dirs", "offs", "off_ends")],
+                         None)
     return out
 
 
@@ -208,12 +229,13 @@ def test_unwindowed_route_is_full_width():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(CASES) + ["full_width"])
 def test_pallas_dirs_end_at_last_wavefront(pallas, case):
-    """In the Pallas kernel's own outputs, every dirs row r >= qlen+tlen-1
-    of a candidate and every row of a qlen-0 candidate is zero, and a
-    qlen-0 candidate scores NEG_INF: extd2_band.cu ends each candidate at
-    its last live wavefront and zeroes the rest."""
+    """In the Pallas kernel's own outputs, windowed and at full width,
+    every dirs row r >= qlen+tlen-1 of a candidate and every row of a
+    qlen-0 candidate is zero, and a qlen-0 candidate scores NEG_INF:
+    extd2_band.cu and extd2.cu end each candidate at its last live
+    wavefront and zero the rest."""
     (Q, T, lens, band, tlens), ref, _ = pallas[case]
     score, dirs = ref[0], ref[1]
     R = dirs.shape[1]

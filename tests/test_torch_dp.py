@@ -1,7 +1,8 @@
 """Port DP vs gdiet_tpu.ops.dp.extd2_batch (the plain reference of the
 Pallas kernel), bit for bit: score (NEG_INF rows included), the whole dirs
-tensor, offs and off_ends. The CUDA kernels (unfolded and folded) are held
-against their plain versions on a card; without one those cases skip.
+tensor, offs and off_ends. The CUDA kernels (unfolded and folded, and the
+backtrack kernel on the unfolded dirs) are held against their plain
+versions on a card; without one those cases skip.
 
 JAX is imported inside the tests that use it, so that the CUDA case also
 runs on a GPU host without JAX:
@@ -137,4 +138,41 @@ def test_cuda_fold_kernel_matches_plain(N, Lmax, Lt):
     assert extd2.fold_launches.n == launches + 1
     ref = dp_fold.extd2_fold(*args, prm, Lmax, tlens=tl, Lt=Lt)
     for a, b in zip(ref, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,Lmax,Lt,kind", [
+    (6272, 160, None, "staggered"), (400, 160, None, "dead"), (300, 512, None, "staggered"),
+    (200, 96, 120, "staggered"), (64, 64, 600, "staggered")])
+def test_cuda_kernel_and_backtrack_match_plain(N, Lmax, Lt, kind):
+    """extd2.cu (the warp route up to 512 lanes, the block route at 608)
+    and the backtrack kernel on its full-width dirs, as the short-read step
+    calls it (tlens = qlens where the target budget is the query's),
+    against their plain versions, exact: at the main path's 6,272 x 160,
+    with staggered lengths (2..Lmax, every ninth row dead) and an all-dead
+    chunk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
+
+    prm = (2, 8, 12, 2, 24, 1)
+    Q, T, lens, tlens, band = _cases(19, N=N, Lmax=Lmax, Lt=Lt)
+    if kind == "dead":
+        lens[:] = 0
+    q, t, ln, bd = (torch.from_numpy(a).cuda() for a in (Q, T, lens, band))
+    tl = torch.from_numpy(tlens).cuda() if Lt else None
+    launches = extd2.launches.n
+    got = extd2.extd2_batch(q, t, ln, bd, prm, Lmax, tlens=tl, Lt=Lt)
+    torch.cuda.synchronize()
+    assert extd2.launches.n == launches + 1
+    ref = dp.extd2_batch(q, t, ln, bd, prm, Lmax, tlens=tl, Lt=Lt)
+    for a, b in zip(ref, got):
+        assert torch.equal(a, b)
+    launches = extd2.backtrack_launches.n
+    bt = extd2.backtrack_band(got[1], ln, ln if tl is None else tl, bd, Lmax, Lt or Lmax)
+    torch.cuda.synchronize()
+    assert extd2.backtrack_launches.n == launches + 1
+    ref_bt = backtrack_antidiag(got[1], ln, bd, Lmax, tlens=tl, Lt=Lt)
+    for a, b in zip(ref_bt, bt):
         assert torch.equal(a, b)
