@@ -6,7 +6,7 @@
 Needs one CUDA GPU, the CUDA toolkit (nvcc) and a C compiler; imports no
 JAX. Phases, each printing one line:
 
-1. device/build: ``nvidia-smi`` name and power limit; the four CUDA kernels
+1. device/build: ``nvidia-smi`` name and power limit; the five CUDA kernels
    of the SR, PE and LR paths built from the checkout's sources, one
    ``nvcc`` per source started together (seconds and ``ptxas -v`` output
    per kernel).
@@ -31,12 +31,26 @@ JAX. Phases, each printing one line:
    With ``--prev DIR`` (earlier sources of ``extd2.cu`` and
    ``extd2_fold.cu``): both kernels timed in turns against the earlier
    sources on the same inputs, outputs equal (phase ``prev``).
-4. golden: ``tests/data`` fixtures (``golden.sam`` and ``golden2_*.sam`` for
+4. kernel_vote: the vote kernel ``vote_scan`` (one thread per read, the K
+   slots in shared memory) against the plain loop on the hit streams the
+   step hands it: one SE batch of the main phase (10,016 reads, M = 130,
+   K = 2) and one generic batch (65,536 reads at the mapper's default
+   budgets, A = 2,048, M = 4,098) at K = 2 and K = 20; all 11 outputs
+   exact. Times as in phase 2 (the plain loop one run), the bound (B*M*13
+   bytes of streams over HBM bandwidth), the serial floor (M columns x 24
+   cycles), ptxas registers and spills.
+5. golden: ``tests/data`` fixtures (``golden.sam`` and ``golden2_*.sam`` for
    patterns 10, 1110, 11 and 110) mapped on the card through
-   ``ShortReadMapper.map_stream_sam``; records must equal the reference
-   binary's golden SAM byte for byte; the backtrack kernel launched and the
-   plain walk never called.
-5. main: the bench workload (2 Mbp genome, 150 bp reads at 0.5%
+   ``ShortReadMapper.map_stream_sam`` and through ``map_batch`` (regs
+   written by ``io/sam.py``), and ``golden_split.sam`` through the CLI
+   (``-I 40k --split-prefix``); records must equal the reference binary's
+   golden SAM byte for byte. The vote, DP and backtrack kernels launched
+   and their plain versions never called (every SR/PE phase below checks
+   the same).
+6. api: ``Aligner(device="cuda")`` maps each read of ``reads.fq`` (one
+   ``map`` call per read, with cs and MD): contig, start, strand, CIGAR
+   and MAPQ equal the golden records'.
+7. main: the bench workload (2 Mbp genome, 150 bp reads at 0.5%
    substitutions, half reverse-complemented, bench.py's recipe) indexed on
    the card and mapped at the bench budgets, 1 warm-up + 4 timed batches of
    10,016 reads. Kernel launch counts (DP and backtrack) and the plain
@@ -49,14 +63,23 @@ JAX. Phases, each printing one line:
    first 128 reads' SAM equal to the oracle's. One batch's per-phase device
    times; its DP inputs, as the step hands them to the DP kernel, through
    the kernel and the plain version, and its dirs through the backtrack
-   kernel and the plain walk: exact.
-6. golden_pe: the paired-end fixture (``ref_pe.fa``, ``reads_pe_1.fq`` +
+   kernel and the plain walk: exact. One call of the wider retry tier (512
+   reads at A = 2,048), timed after a first call that builds it.
+8. generic: the bench recipe's 65,536 reads (9.8 Mbp, one mini-batch)
+   through the CLI on a prebuilt index: ``-a`` (the fast path), ``-a --MD
+   --cs`` and ``-c`` (PAF), the last two through the generic per-record
+   writer. Checks: the --MD --cs records without those tags equal the fast
+   path's; the first 128 reads' records equal the scalar oracle's, tags
+   included; every PAF line agrees with its SAM record. Reads/s of each
+   run; one generic batch's per-phase device times, host finish (regs),
+   SAM writing and peak device memory per read.
+9. golden_pe: the paired-end fixture (``ref_pe.fa``, ``reads_pe_1.fq`` +
    ``reads_pe_2.fq``) through the port's PE CLI on ``cuda`` with
    ``GDIET_DP_FOLD=1``: records equal the same run on ``cpu`` (the plain
    versions) and on ``cuda`` with the fold off, byte for byte, and the R1
    records match ``golden_pe_r1.sam`` as ``tests/test_pe_parity.py`` checks
    them. Both cuda runs launch the backtrack kernel and never the plain walk.
-7. pe: the PE path at full width with ``GDIET_DP_FOLD=1``: FR pairs of 150
+10. pe: the PE path at full width with ``GDIET_DP_FOLD=1``: FR pairs of 150
    bp ends (fragments of 250-500 bp, 0.5% substitutions) from the bench
    genome, 1 warm-up + 3 timed batches of 4,096 pairs at the JAX runtime's
    PE budgets. Launch counts are reset just before and read just after.
@@ -68,7 +91,7 @@ JAX. Phases, each printing one line:
    The DP inputs of one batch, as the step hands them to the fold kernel,
    go through the kernel and the plain fold version once more, and the
    folded dirs through the backtrack kernel and the plain walk: exact.
-8. kernel_band: the banded lane window kernel ``extd2_band`` against its
+11. kernel_band: the banded lane window kernel ``extd2_band`` against its
    plain version at the (2048, 3072) long-read bucket, 64 seeded windows
    (equal, mutated, indels, N codes, dead rows), at band 500 (WB 768) and
    1300 (WB 1,536), two lanes per thread: scores, every dirs byte, offs and
@@ -82,11 +105,11 @@ JAX. Phases, each printing one line:
    bound; ptxas registers, static shared memory and spills of both
    kernels; the DPX instructions in the band kernel's SASS (``cuobjdump
    -sass``, > 0).
-9. golden_lr: ``tests/data/ref_lr.fa`` + ``reads_lr.fq`` through the port's
+12. golden_lr: ``tests/data/ref_lr.fa`` + ``reads_lr.fq`` through the port's
    CLI on ``cuda`` with the HiFi and ONT arguments of
    ``tests/data/make_lr_fixtures.py``: records byte-equal to
    ``golden_lr_hifi.sam`` and ``golden_lr_ont.sam``.
-10. lr: the HiFi path at full size: bench.py's ``gen_lr_reads`` recipe on
+13. lr: the HiFi path at full size: bench.py's ``gen_lr_reads`` recipe on
    the bench genome, its ``lr_stats`` options and mapper budgets, 1
    warm-up + 3 timed batches of 256 reads. Counts reset just before and
    read just after. Checks: >= 90% of reads mapped, the first 32 reads'
@@ -116,6 +139,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 DATA = ROOT / "tests" / "data"
 GENOME_LEN, READ_LEN, SUB_RATE, SEED = 2_000_000, 150, 0.005, 20260816
 BENCH_B, N_TIMED = 10016, 4
+GENERIC_READS = 65536  # one generic mini-batch of 150 bp reads (9.8 Mbp)
+GENERIC_DP512_READS = 8192  # reads of the max_read_len 512 DP timing
 N_ORACLE, N_UNMAPPED_ORACLE = 128, 64
 KERNEL_SHAPE = dict(N=6272, L=160, qlen=150)
 KERNEL_ROUNDS, KERNEL_REPS = 5, 10  # rounds of 10 launches; the median is reported
@@ -460,6 +485,97 @@ def phase_kernel_fold(device, N: int, L: int, qlen: int, card: str,
     return res
 
 
+# integer operations per column of one row of the vote (the body of
+# csrc/vote_scan.cu: the unsigned distance test, the run tests and the run
+# update), and the cycles of its dependent chain per column (about six
+# dependent integer operations at ~4 cycles each), for the serial floor
+VOTE_OPS_PER_COLUMN = 12
+VOTE_CYCLES_PER_COLUMN = 24
+
+
+def capture_vote(mapper, codes, lens) -> tuple:
+    """The arguments one fused step hands to ``ops/vote.py::vote_scan``."""
+    from gdiet_tpu_torch.ops import vote
+
+    seen = []
+    launch = vote.vote_scan
+
+    def spy(*args):
+        seen.append(args)
+        return launch(*args)
+
+    vote.vote_scan = spy
+    try:
+        mapper.fused(codes, lens)
+    finally:
+        vote.vote_scan = launch
+    check(len(seen) == 1, f"the step made {len(seen)} vote calls")
+    return seen[0]
+
+
+def vote_vs_plain(args, K: int, cuda: bool, what: str) -> dict:
+    """The vote kernel against the plain loop on one captured stream with K
+    slots: all 11 outputs exact; times as kernel_vs_plain's (the plain loop
+    one run); the bound (B*M*13 bytes of streams plus the per-read inputs
+    and the outputs over HBM bandwidth, or the column operations over the
+    int32 rate) and the serial floor (M columns x the cycles of one
+    column's dependent chain)."""
+    from gdiet_tpu_torch.ops import vote
+    from gdiet_tpu_torch.pipeline.device_step import vote_scan as plain
+
+    keys, qpos, valid, strand, dist, thr, rec, _ = args
+    a = (keys, qpos, valid, strand, dist, thr, rec, K)
+    got, ref, times = kernel_vs_plain(lambda: vote.vote_scan(*a), lambda: plain(*a), cuda,
+                                      plain_runs=1)
+    err = check_equal([got[n] for n in vote.OUTPUTS], [ref[n] for n in vote.OUTPUTS],
+                      vote.OUTPUTS, f"vote_scan on {what} (K {K})")
+    B, M = keys.shape
+    n_bytes = B * M * 13 + M * 4 + B * 16 + B * K * 24 + B * 32
+    res = {"what": what, "B": B, "M": M, "K": K, **times, "max_abs_err": err,
+           **bound(n_bytes, float(B * M * VOTE_OPS_PER_COLUMN)),
+           "serial_floor_ms": M * VOTE_CYCLES_PER_COLUMN / SM_CLOCK_HZ * 1e3,
+           "valid_hits": int(valid.sum()), "rows_full": int((ref["out_len"] == K).sum()),
+           "rows_recovery": int(((ref["out_len"] == 0) & (ref["r_score"] > 0)).sum())}
+    res["share_of_bound"] = res["bound_ms"] / times["kernel_ms"]
+    return res
+
+
+def phase_kernel_vote(device, card: str, n_main: int = BENCH_B,
+                      n_generic: int = GENERIC_READS, built=None) -> dict:
+    """The vote kernel against the plain loop on captured hit streams: one
+    SE batch of the main phase (bench budgets, M = 130, K = 2) and one
+    generic batch (the mapper's default budgets, A = 2048, M = 4,098) at
+    K = 2 and K = 20. With ``built``: ptxas registers and spills."""
+    import torch
+
+    from gdiet_tpu_torch.index import build_index
+    from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
+
+    cuda = torch.device(device).type == "cuda"
+    genome, _, _, reads = bench_workload(max(n_main, n_generic))
+    io_, mo = sr_options()
+    mi = build_index([("chr1", genome)], io_, device)
+    runs = []
+    main = ShortReadMapper(mi, mo, max_read_len=160, seed_budget=32, shift_seed_budget=16,
+                           hit_budget=64, dp_frac=0.3125, device=device)
+    codes, lens = main.native.encode_batch([r.seq for r in reads[:n_main]], 160)
+    args = capture_vote(main, codes, lens)
+    runs.append(vote_vs_plain(args, 2, cuda, "the main phase's batch"))
+    del args
+    generic = ShortReadMapper(mi, mo, device=device)
+    codes, lens = generic.native.encode_batch([r.seq for r in reads[:n_generic]], generic.Lmax)
+    args = capture_vote(generic, codes, lens)
+    check(args[0].shape[1] == 2 * (generic.fused.cfg.A + 1), "the generic stream's width")
+    for K in (2, 20):
+        runs.append(vote_vs_plain(args, K, cuda, "a generic batch"))
+    del args
+    out = {"runs": runs, "card": card}
+    if built:
+        out["ptxas"] = ptxas_info(built["vote_scan"][2])
+    say("kernel_vote", **out)
+    return out
+
+
 def phase_prev(prev: pathlib.Path, card: str) -> dict:
     """``--prev DIR``: the earlier sources of extd2.cu and extd2_fold.cu in
     DIR (same C entry points), built beside the checkout's, each one nvcc,
@@ -546,34 +662,60 @@ def _map_sam(mapper, reads) -> list:
     return sam.decode().splitlines()
 
 
-def backtrack_counts_reset() -> None:
-    from gdiet_tpu_torch.ops import extd2
+def sr_counts_reset() -> None:
+    """Zero the launch counts of the SR/PE path's kernels (DP, vote,
+    backtrack) and the call counts of their plain versions."""
+    from gdiet_tpu_torch.ops import dp, dp_fold, extd2, vote
     from gdiet_tpu_torch.pipeline import device_step
 
-    extd2.backtrack_launches.reset()
-    device_step.backtrack_calls.reset()
+    for c in (extd2.launches, extd2.fold_launches, extd2.backtrack_launches,
+              vote.launches, dp.calls, dp_fold.calls, device_step.backtrack_calls,
+              device_step.vote_calls):
+        c.reset()
 
 
-def backtrack_counts(what: str, cuda: bool) -> tuple:
-    """(backtrack kernel launches, plain backtrack calls) since the last
-    reset; on the card the kernel must have run and the plain walk not."""
-    from gdiet_tpu_torch.ops import extd2
+def sr_counts(what: str, cuda: bool) -> dict:
+    """The SR/PE kernels' launches and their plain versions' calls since
+    the last reset; on the card every kernel must have run (the DP as
+    extd2 or extd2_fold) and no plain version."""
+    from gdiet_tpu_torch.ops import dp, dp_fold, extd2, vote
     from gdiet_tpu_torch.pipeline import device_step
 
-    n, plain = extd2.backtrack_launches.n, device_step.backtrack_calls.n
+    n = {"dp_launches": extd2.launches.n + extd2.fold_launches.n,
+         "plain_dp_calls": dp.calls.n + dp_fold.calls.n,
+         "vote_launches": vote.launches.n, "plain_vote_calls": device_step.vote_calls.n,
+         "backtrack_launches": extd2.backtrack_launches.n,
+         "plain_backtrack_calls": device_step.backtrack_calls.n}
     if cuda:
-        check(n > 0, f"{what} launched no backtrack kernel")
-        check(plain == 0, f"{what} called the plain backtrack {plain} times")
-    return n, plain
+        for kern in ("dp", "vote", "backtrack"):
+            check(n[f"{kern}_launches"] > 0, f"{what} launched no {kern} kernel")
+            check(n[f"plain_{kern}_calls"] == 0,
+                  f"{what} called the plain {kern} {n[f'plain_{kern}_calls']} times")
+    return n
+
+
+def regs_to_sam(mapper, recs, results) -> list:
+    """SAM records of ``map_batch`` regs, as the mapper's Python writer
+    (the generic writer's formatting) writes them."""
+    return b"".join(mapper._regs_to_sam(rec, regs, 0)
+                    for rec, regs in zip(recs, results)).decode().splitlines()
 
 
 def phase_golden(device) -> dict:
+    """The golden SR fixtures through ``map_stream_sam`` (the native
+    finish) and ``map_batch`` (regs, written by ``io/sam.py``), and
+    ``golden_split.sam`` through the CLI (``-I 40k --split-prefix``): each
+    byte-equal to the reference binary's records."""
+    import tempfile
+
+    from gdiet_tpu_torch import cli
     from gdiet_tpu_torch.index import build_index
     from gdiet_tpu_torch.io.fastx import read_fastx
     from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
+    from gdiet_tpu_torch.testing import sam_body
 
     out = {}
-    backtrack_counts_reset()
+    sr_counts_reset()
     for ref, reads, golden, pattern, lmax in (
             ("ref.fa", "reads.fq", "golden.sam", "10", 256),
             ("ref2.fa", "reads2.fq", "golden2_10.sam", "10", 512),
@@ -583,16 +725,34 @@ def phase_golden(device) -> dict:
         io_, mo = sr_options(pattern)
         mi = build_index([(r.name, r.seq) for r in read_fastx(str(DATA / ref))], io_, device)
         mapper = ShortReadMapper(mi, mo, max_read_len=lmax, device=device)
-        mine = _map_sam(mapper, list(read_fastx(str(DATA / reads))))
-        gold = [l for l in (DATA / golden).read_text().splitlines() if not l.startswith("@")]
-        same = sum(a == b for a, b in zip(mine, gold))
-        check(mine == gold, f"{golden}: {same}/{len(gold)} records equal "
-              f"({len(mine)} produced)")
+        recs = list(read_fastx(str(DATA / reads)))
+        gold = sam_body(DATA / golden)
+        for how, mine in (("map_stream_sam", _map_sam(mapper, recs)),
+                          ("map_batch", regs_to_sam(mapper, recs, mapper.map_batch(recs)))):
+            same = sum(a == b for a, b in zip(mine, gold))
+            check(mine == gold, f"{golden} through {how}: {same}/{len(gold)} records "
+                  f"equal ({len(mine)} produced)")
         out[golden] = len(gold)
-    bt_n, bt_plain = backtrack_counts("the golden SR runs", device == "cuda")
-    say("golden", records=out, identical=True, backtrack_launches=bt_n,
-        plain_backtrack_calls=bt_plain)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "split.sam"
+        check(cli.main(["--device", device, *PE_ARGS, "-I", "40k", "--split-prefix",
+                        str(pathlib.Path(tmp) / "sp"), "-o", str(path), str(DATA / "ref2.fa"),
+                        str(DATA / "reads2.fq")]) == 0, "the --split-prefix CLI failed")
+        mine, gold = sam_body(path), sam_body(DATA / "golden_split.sam")
+        same = sum(a == b for a, b in zip(mine, gold))
+        check(mine == gold, f"golden_split.sam: {same}/{len(gold)} records equal "
+              f"({len(mine)} produced)")
+        out["golden_split.sam"] = len(gold)
+    counts = sr_counts("the golden SR runs", torch_cuda(device))
+    say("golden", records=out, identical=True, ways=["map_stream_sam", "map_batch", "cli"],
+        **counts)
     return out
+
+
+def torch_cuda(device) -> bool:
+    import torch
+
+    return torch.device(device).type == "cuda"
 
 
 def bench_workload(n_reads: int, genome_len: int = GENOME_LEN):
@@ -642,9 +802,7 @@ def phase_main(device, B: int, n_timed: int, genome_len: int, card: str) -> dict
     batches = [reads[i * B:(i + 1) * B] for i in range(n_timed + 1)]
 
     # ---- the main path: counts reset just before, read just after ----
-    extd2.launches.reset()
-    dp.calls.reset()
-    backtrack_counts_reset()
+    sr_counts_reset()
     sam = _map_sam(mapper, batches[0])  # warm-up batch
     warm = dict(mapper.stats)
     t0 = time.perf_counter()
@@ -653,7 +811,7 @@ def phase_main(device, B: int, n_timed: int, genome_len: int, card: str) -> dict
     sync()
     wall = time.perf_counter() - t0
     launches, plain_calls = extd2.launches.n, dp.calls.n
-    bt_n, bt_plain = backtrack_counts("the main path", cuda)
+    counts = sr_counts("the main path", cuda)
     stats = mapper.stats
     if cuda:
         check(launches > 0, "the main path launched no extd2 kernel")
@@ -699,19 +857,260 @@ def phase_main(device, B: int, n_timed: int, genome_len: int, card: str) -> dict
     phases = per_phase(mapper, codes, lens, cuda, lambda dev, fetched: mapper._finish_sam(
         (batch, codes, lens, np.zeros(n, bool), np.arange(n), dev, blobs, n), 0, fetched))
     step = step_dp_check(mapper, codes, lens, fold=False)
+    # ---- the wider retry tier (A = 2,048, dp_frac 1.0) on one call of
+    # retry_batch reads, after a first call that builds it ----
+    retry_ms = []
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        mapper._retry_batch_regs(reads[:mapper.retry_batch])
+        sync()
+        retry_ms.append((time.perf_counter() - t0) * 1e3)
     res = {"reads": n_reads, "timed_reads": B * n_timed, "batch": B,
            "reads_per_s": B * n_timed / wall, "timed_wall_s": wall,
            "index_build_s": index_s,
            "fallback_reads": warm["fallback_reads"] + stats["fallback_reads"],
            "retried_reads": warm.get("retried_reads", 0) + stats.get("retried_reads", 0),
-           "extd2_launches": launches, "plain_dp_calls": plain_calls,
-           "backtrack_launches": bt_n, "plain_backtrack_calls": bt_plain, **step,
+           "extd2_launches": launches, **counts, **step,
            "mapped_reads": len(mapped), "mapped_at_origin": near / len(mapped),
            "unmapped_reads": len(unmapped),
            "unmapped_checked_by_oracle": min(len(unmapped), N_UNMAPPED_ORACLE),
            "oracle_reads_equal": n_or,
-           "phase_ms": phases, "card": card}
+           "phase_ms": phases, "retry_tier_call_ms": retry_ms[1],
+           "retry_tier_first_call_ms": retry_ms[0], "card": card}
     say("main", **res)
+    return res
+
+
+def write_fastx(dirpath: pathlib.Path, genome: str, reads) -> tuple:
+    """The genome as FASTA and the reads as FASTQ under ``dirpath``."""
+    fa, fq = dirpath / "genome.fa", dirpath / "reads.fq"
+    fa.write_text(">chr1\n" + genome + "\n")
+    with open(fq, "w") as f:
+        f.writelines(f"@{r.name}\n{r.seq}\n+\n{r.qual}\n" for r in reads)
+    return fa, fq
+
+
+def strip_tags(line: str, tags=("MD:Z:", "cs:Z:")) -> str:
+    return "\t".join(f for f in line.split("\t") if not f.startswith(tags))
+
+
+def paf_agrees(paf: list, sam: list) -> int:
+    """PAF lines against the SAM's mapped records, in order: query name,
+    strand, target, 0-based start, MAPQ and the CIGAR without its soft
+    clips (cg:Z). Returns the lines checked."""
+    import re
+
+    mapped = [f for f in (l.split("\t") for l in sam) if not int(f[1]) & 4]
+    check(len(paf) == len(mapped), f"{len(paf)} PAF lines for {len(mapped)} mapped records")
+    for line, f in zip(paf, mapped):
+        p = line.split("\t")
+        cg = next(t[5:] for t in p[12:] if t.startswith("cg:Z:"))
+        want = (f[0], "-" if int(f[1]) & 16 else "+", f[2], int(f[3]) - 1, f[4],
+                re.sub(r"^\d+S|\d+S$", "", f[5]))
+        check((p[0], p[4], p[5], int(p[7]), p[11], cg) == want,
+              f"PAF line {line[:80]!r} disagrees with SAM record {f[:6]}")
+    return len(paf)
+
+
+def dp_at_size(mapper, codes, lens, cuda: bool, n_plain: int = 1024) -> dict:
+    """One batch's DP inputs, as the step hands them to ``extd2_batch``:
+    the DP kernel and the backtrack kernel timed on all of them (as
+    kernel_vs_plain times a kernel), and both held against their plain
+    versions on the first ``n_plain`` rows (exact), whose plain times are
+    reported for those rows."""
+    from gdiet_tpu_torch.ops import dp, extd2
+    from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
+
+    seen = []
+    launch = extd2.extd2_batch
+
+    def spy(*args, **kw):
+        seen.append((args, kw))
+        return launch(*args, **kw)
+
+    extd2.extd2_batch = spy
+    try:
+        mapper.fused(codes, lens)
+    finally:
+        extd2.extd2_batch = launch
+    check(len(seen) == 1 and not seen[0][1].get("fold"), "the step made no unfolded DP call")
+    (q, t, ln, bd, params, L), _ = seen[0]
+    out, _, times = kernel_vs_plain(lambda: extd2.extd2_batch(q, t, ln, bd, params, L),
+                                    lambda: None, cuda, plain_runs=1)
+    bt, _, bt_times = kernel_vs_plain(lambda: extd2.backtrack_band(out[1], ln, ln, bd, L, L),
+                                      lambda: None, cuda, plain_runs=1)
+    n = min(n_plain, int(q.shape[0]))
+    sub = (q[:n], t[:n], ln[:n], bd[:n])
+    t0 = time.perf_counter()
+    plain = dp.extd2_batch(*sub, params, L)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = check_equal(extd2.extd2_batch(*sub, params, L), plain, DP_OUTPUTS,
+                      f"extd2 at Lmax {L} on the step's DP inputs")
+    t0 = time.perf_counter()
+    bt_plain = backtrack_antidiag(plain[1], ln[:n], bd[:n], L)
+    bt_plain_ms = (time.perf_counter() - t0) * 1e3
+    bt_err = check_equal(extd2.backtrack_band(plain[1], ln[:n], ln[:n], bd[:n], L, L),
+                         bt_plain, BT_OUTPUTS, f"backtrack_band at Lmax {L}")
+    res = {"Lmax": L, "lanes": dp.round16(L), "rows": int(q.shape[0]),
+           "live_rows": int((ln > 0).sum()), "kernel_ms": times["kernel_ms"],
+           "kernel_ms_rounds": times["kernel_ms_rounds"], **dp_bound((q, t, ln, bd), out),
+           "plain_rows": n, "plain_ms_on_plain_rows": plain_ms, "max_abs_err": err,
+           "backtrack": {"kernel_ms": bt_times["kernel_ms"], **walk_report(bt, bt_times["kernel_ms"],
+                                                                          int(q.shape[0])),
+                         "plain_ms_on_plain_rows": bt_plain_ms, "max_abs_err": bt_err}}
+    res["share_of_bound"] = res["bound_ms"] / times["kernel_ms"]
+    return res
+
+
+def phase_generic(device, n_reads: int, card: str) -> dict:
+    """The generic per-record path at size: the bench recipe's reads (one
+    mini-batch) through the CLI on a prebuilt index, as SAM (``-a``, the
+    fast path), SAM with ``--MD --cs`` and PAF (``-c``), both through the
+    generic writer. Checks: the --MD --cs records without those tags equal
+    the fast path's; the first reads' records equal the scalar oracle's,
+    tags included; every PAF line agrees with its SAM record; each run
+    launched the vote, DP and backtrack kernels and no plain version. Then
+    one generic batch's per-phase device times, its host finish (regs) and
+    SAM writing, and the peak device memory per read."""
+    import tempfile
+
+    import torch
+
+    from gdiet_tpu_torch import cli, config, runtime
+    from gdiet_tpu_torch.index import build_index
+    from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
+    from gdiet_tpu_torch.testing import sam_body
+
+    cuda = torch_cuda(device)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    genome, _, _, reads = bench_workload(n_reads)
+    io_, mo = sr_options()
+    mo.flag |= (config.MM_F_OUT_SAM | config.MM_F_CIGAR | config.MM_F_OUT_MD
+                | config.MM_F_OUT_CS)  # -a --MD --cs
+    args = [a for a in PE_ARGS if a != "-a"]
+    res = {"reads": n_reads, "bases": n_reads * READ_LEN}
+    generic_calls = []
+    run_generic = runtime.run_generic
+
+    def spy(*a, **kw):
+        generic_calls.append(1)
+        return run_generic(*a, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        _, fq = write_fastx(tmp, genome, reads)
+        t0 = time.perf_counter()
+        mi = build_index([("chr1", genome)], io_, device)
+        sync()
+        res["index_build_s"] = time.perf_counter() - t0
+        idx = tmp / "genome.gdi.npz"
+        mi.save(str(idx))
+        outs, walls, counts = {}, {}, {}
+        runtime.run_generic = spy
+        try:
+            for tag, opts, generic in (("fast", ["-a"], False),
+                                       ("md_cs", ["-a", "--MD", "--cs"], True),
+                                       ("paf", ["-c"], True)):
+                path = tmp / f"{tag}.out"
+                n0 = len(generic_calls)
+                sr_counts_reset()
+                t0 = time.perf_counter()
+                check(cli.main(["--device", device, *opts, *args, "-o", str(path), str(idx),
+                                str(fq)]) == 0, f"the {tag} CLI run failed")
+                sync()
+                walls[tag] = time.perf_counter() - t0
+                check((len(generic_calls) > n0) == generic,
+                      f"the {tag} run {'missed' if generic else 'took'} the generic writer")
+                counts[tag] = sr_counts(f"the {tag} CLI run", cuda)
+                outs[tag] = sam_body(path)
+        finally:
+            runtime.run_generic = run_generic
+    check([strip_tags(l) for l in outs["md_cs"]] == outs["fast"],
+          "the --MD --cs records without their tags differ from the fast path's")
+    check(sum("\tMD:Z:" in l for l in outs["md_cs"]) > 0.9 * n_reads, "MD tags missing")
+    n_or = min(N_ORACLE, n_reads)
+    mapper = ShortReadMapper(mi, mo, device=device)
+    oracle = b"".join(mapper._oracle_sam(r, 0) for r in reads[:n_or]).decode().splitlines()
+    names = {r.name for r in reads[:n_or]}
+    mine = [l for l in outs["md_cs"] if l.split("\t", 1)[0] in names]
+    check(mine == oracle, "the first reads' --MD --cs records differ from the scalar oracle's")
+    n_paf = paf_agrees(outs["paf"], outs["fast"])
+
+    # ---- one generic batch: per-phase device times, host finish, writer,
+    # peak device memory ----
+    codes, lens = mapper.native.encode_batch([r.seq for r in reads], mapper.Lmax)
+    results = []
+    sync()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    phases = per_phase(mapper, codes, lens, cuda, lambda dev, fetched: results.append(
+        mapper._finish((reads, codes, lens, np.zeros(n_reads, bool), np.arange(n_reads), dev),
+                       fetched)))
+    peak = (torch.cuda.max_memory_allocated() - base) if cuda else 0
+    t0 = time.perf_counter()
+    lines = regs_to_sam(mapper, reads, results[0])
+    phases["sam_writer"] = (time.perf_counter() - t0) * 1e3
+    check(lines == outs["md_cs"], "the batch's records differ from the CLI run's")
+    # extd2.cu and the backtrack at the generic widths: 256 lanes (this
+    # batch) and 512 (max_read_len 512, as the golden2 fixtures map)
+    dp_sizes = [dp_at_size(mapper, codes, lens, cuda)]
+    stats, cfg = mapper.stats, mapper.fused.cfg
+    del mapper, results
+    wide = ShortReadMapper(mi, mo, max_read_len=512, device=device)
+    n512 = min(n_reads, GENERIC_DP512_READS)
+    c512, l512 = wide.native.encode_batch([r.seq for r in reads[:n512]], 512)
+    dp_sizes.append(dp_at_size(wide, c512, l512, cuda))
+    res.update({
+        "reads_per_s": {tag: n_reads / w for tag, w in walls.items()}, "wall_s": walls,
+        "records": len(outs["md_cs"]), "paf_lines_checked": n_paf,
+        "oracle_reads_equal": n_or, "launches_and_plain_calls": counts,
+        "batch_phase_ms": phases, "fallback_reads": stats["fallback_reads"],
+        "retried_reads": stats.get("retried_reads", 0),
+        "hit_budget": cfg.A, "vote_columns": 2 * (cfg.A + 1),
+        "peak_device_bytes": peak, "peak_device_bytes_per_read": peak / n_reads,
+        "dp_at_size": dp_sizes, "card": card})
+    say("generic", **res)
+    return res
+
+
+def phase_api(device, card: str) -> dict:
+    """``Aligner(device=...)`` on ``ref.fa``, one ``map`` call per read of
+    ``reads.fq``: every alignment's contig, 1-based start, strand, CIGAR
+    (the SAM CIGAR without soft clips) and MAPQ equal the golden records'."""
+    import re
+
+    from gdiet_tpu_torch.api import Aligner, fastx_read
+    from gdiet_tpu_torch.testing import sam_body
+
+    gold: dict = {}
+    for f in (l.split("\t") for l in sam_body(DATA / "golden.sam")):
+        if not int(f[1]) & 4:
+            gold.setdefault(f[0], []).append(
+                (f[2], int(f[3]), -1 if int(f[1]) & 16 else 1,
+                 re.sub(r"^\d+S|\d+S$", "", f[5]), int(f[4])))
+    sr_counts_reset()
+    a = Aligner(str(DATA / "ref.fa"), device=device, preset="sr", pattern="10",
+                max_seeds=2.0, best_n=1, bw_frac=0.05, bw_min=150, bw_max=200,
+                min_cnt=0.95, rec_threshold_frac=0.3, min_dp_max=100, AF_max_loc=2)
+    t0 = time.perf_counter()
+    n_reads = n_aln = 0
+    for name, seq, _ in fastx_read(str(DATA / "reads.fq")):
+        hits = [(h.ctg, h.r_st + 1, h.strand, h.cigar_str, h.mapq)
+                for h in a.map(seq, cs=True, MD=True)]
+        check(hits == gold.get(name, []), f"Aligner on {name}: {hits} != {gold.get(name)}")
+        n_reads += 1
+        n_aln += len(hits)
+    wall = time.perf_counter() - t0
+    counts = sr_counts("the Aligner", torch_cuda(device))
+    res = {"reads": n_reads, "alignments": n_aln, "seconds": wall,
+           "ms_per_map_call": wall * 1e3 / n_reads, **counts, "card": card}
+    say("api", **res)
     return res
 
 
@@ -800,16 +1199,15 @@ def phase_golden_pe(card: str) -> dict:
         for name, device, fold in (("cuda_fold", "cuda", "1"), ("cpu_fold", "cpu", "1"),
                                    ("cuda_unfold", "cuda", "0")):
             os.environ["GDIET_DP_FOLD"] = fold
-            n0 = extd2.fold_launches.n
-            backtrack_counts_reset()
+            sr_counts_reset()
             out = pathlib.Path(tmp) / f"{name}.sam"
             check(cli.main(["--device", device, *PE_ARGS, "-o", str(out), *inputs]) == 0,
                   f"PE CLI on {device} (fold {fold}) failed")
             runs[name] = sam_body(out)
             if device == "cuda":
-                bt[name] = backtrack_counts(f"the PE CLI ({name})", True)
+                bt[name] = sr_counts(f"the PE CLI ({name})", True)
             if name == "cuda_fold":
-                check(extd2.fold_launches.n > n0, "the PE CLI launched no fold kernel")
+                check(extd2.fold_launches.n > 0, "the PE CLI launched no fold kernel")
     os.environ.pop("GDIET_DP_FOLD")
     ref = runs["cuda_fold"]
     for name in ("cpu_fold", "cuda_unfold"):
@@ -820,7 +1218,7 @@ def phase_golden_pe(card: str) -> dict:
     check(n_checked > 200, f"only {n_checked} R1 records checked")
     res = {"records": len(ref), "identical_cpu_and_unfolded": True,
            "r1_checked_against_golden": n_checked,
-           "backtrack_launches_and_plain_calls": bt, "card": card}
+           "launches_and_plain_calls": bt, "card": card}
     say("golden_pe", **res)
     return res
 
@@ -892,9 +1290,7 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
 
     # ---- the PE path: counts reset just before, read just after ----
     counts = (extd2.launches, extd2.fold_launches, dp.calls, dp_fold.calls)
-    for c in counts:
-        c.reset()
-    backtrack_counts_reset()
+    sr_counts_reset()
     sam = run(mapper, batches[:1])  # warm-up batch
     first_batch = list(sam)
     warm = dict(mapper.stats)
@@ -903,7 +1299,7 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
     sync()
     wall = time.perf_counter() - t0
     unfold_launches, fold_launches, plain_calls, plain_fold_calls = (c.n for c in counts)
-    bt_n, bt_plain = backtrack_counts("the PE path", cuda)
+    pe_counts = sr_counts("the PE path", cuda)
     if cuda:
         check(fold_launches > 0, "the PE path launched no extd2_fold kernel")
         check(plain_fold_calls == 0 and plain_calls == 0,
@@ -940,10 +1336,10 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
     oracle = b"".join(mapper._oracle_sam_pe(p, 0) for p in pairs[:PE_ORACLE]).decode().splitlines()
     mine = [l for n in range(PE_ORACLE) for l in by_name[f"p{n}"]]
     check(mine == oracle, "SAM of the first pairs differs from the oracle's PE finish")
-    backtrack_counts_reset()
+    sr_counts_reset()
     check(run(unfolded, batches[:1]) == first_batch,
           "the first batch's SAM differs with the fold off")
-    bt_unfold = backtrack_counts("the PE path with the fold off", cuda)
+    unfold_counts = sr_counts("the PE path with the fold off", cuda)
 
     # ---- per-phase device times of one batch ----
     state = mapper._prepare_pe(batches[1], P)
@@ -959,8 +1355,7 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
            "fallback_pairs": warm["fallback_reads"] + mapper.stats["fallback_reads"],
            "extd2_fold_launches": fold_launches, "extd2_launches": unfold_launches,
            "plain_dp_calls": plain_calls, "plain_fold_calls": plain_fold_calls,
-           "backtrack_launches": bt_n, "plain_backtrack_calls": bt_plain,
-           "fold_off_backtrack_launches_and_plain_calls": bt_unfold,
+           **pe_counts, "fold_off_launches_and_plain_calls": unfold_counts,
            "pairs_both_mapped": both / n_pairs, "mapped_at_origin": near / len(mapped),
            **step,
            "oracle_pairs_equal": PE_ORACLE, "first_batch_equal_unfolded": True,
@@ -1342,10 +1737,13 @@ def main(argv=None) -> int:
     kf = phase_kernel_fold("cuda", card=card, built=built, **KERNEL_SHAPE)
     kf_pe = phase_kernel_fold("cuda", card=card, phase="kernel_fold_pe",
                               **{**KERNEL_SHAPE, "N": pe_dp_rows(PE_PAIRS)})
+    kv = phase_kernel_vote("cuda", card, built=built)
     if args.prev is not None:
         phase_prev(args.prev, card)
     phase_golden("cuda")
+    phase_api("cuda", card)
     m = phase_main("cuda", BENCH_B, N_TIMED, GENOME_LEN, card)
+    phase_generic("cuda", GENERIC_READS, card)
     phase_golden_pe(card)
     pe = phase_pe("cuda", PE_PAIRS, PE_TIMED, GENOME_LEN, card)
     kb = phase_kernel_band("cuda", card, built=built)
@@ -1353,6 +1751,7 @@ def main(argv=None) -> int:
     lr = phase_lr("cuda", LR_TIMED, GENOME_LEN, card)
     src = "gdiet_tpu_torch/csrc/"
     hifi = kb["runs"][0]  # band 500: the HiFi workload's budget
+    kv_main = kv["runs"][0]  # the main phase's stream (M = 130, K = 2)
     bound_keys = ("bound_ms", "bound_by")
     print(json.dumps({"kernels": [
         {"name": "extd2", "route": "cuda", "source": src + "extd2.cu",
@@ -1388,6 +1787,12 @@ def main(argv=None) -> int:
                                lr["step_dp"]["backtrack_max_abs_err"]]),
          "ms": k["backtrack"]["kernel_ms"], "plain_ms": k["backtrack"]["plain_ms"],
          **{x: k["backtrack"][x] for x in bound_keys}, "library_ms": None},
+        {"name": "vote_scan", "route": "cuda", "source": src + "vote_scan.cu",
+         "replaces": "gdiet_tpu/pipeline/device_step.py:54",
+         "launches": m["vote_launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in kv["runs"]),
+         "ms": kv_main["kernel_ms"], "plain_ms": kv_main["plain_ms"],
+         **{x: kv_main[x] for x in bound_keys}, "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,32 +1,33 @@
-"""Command line of the port: short-read and long-read mapping to SAM on a GPU.
+"""Command line of the port: the whole gdiet_tpu CLI on a GPU.
 
   python -m gdiet_tpu_torch -a -x sr -Z 10 -W 2 -k 21 -w 11 -i 2 -N 1 \
       -r 0.05,150,200 -n 0.95,0.3 -s 100 --AF_max_loc 2 ref.fa reads.fq
+  python -m gdiet_tpu_torch -c --cs -x sr ... ref.fa reads.fq      # PAF
   python -m gdiet_tpu_torch -a -x map-hifi -Z 10 -W 2 -k 19 -w 19 -i 0.2 \
       -r 200 --vt_dis=650 --vt_nb_loc=5 ref.fa hifi.fq
 
-Two query files (``r1.fq r2.fq``) map short reads as pairs.
-``GDIET_DP_FOLD=1`` runs the short-read DP through the folded kernel where
-the banded lane window cannot engage, as in ``gdiet_tpu``. Presets ``sr`` /
-``short`` select the short-read pipeline, ``map-hifi``, ``map-ont``,
-``map-pb`` and ``map-ccs`` the long-read one (``--variant`` overrides).
+Options keep the letters, syntax and effect of ``gdiet_tpu/cli.py`` (the
+reference's main.c): the tokenizer and the option loop below are copies of
+its ketopt-style scan and its parser, and set the same
+``IndexOptions``/``MapOptions`` fields; options whose semantics are dead in
+the GDiet hot path warn and go on. Two query files (``r1.fq r2.fq``) map
+short reads as pairs. ``GDIET_DP_FOLD=1`` runs the short-read DP through
+the folded kernel where the banded lane window cannot engage, as in
+``gdiet_tpu``. Presets ``sr`` / ``short`` select the short-read pipeline,
+all others the long-read one (``--variant`` overrides).
 
-Options keep the letters and syntax of ``gdiet_tpu/cli.py`` (the
-reference's main.c); the tokenizer below is a copy of its ketopt-style
-scan, and this parser handles the subset the port maps. ``--device``
-(default ``cuda``) picks the torch device; without a GPU, ``cuda`` is an
-error. The target is FASTA (indexed on the device) or an npz index saved by
-either package.
+``--device`` (default ``cuda``) is the port's own option and picks the
+torch device; without a GPU, ``cuda`` is an error. The target is FASTA
+(indexed on the device) or an npz index saved by either package.
 """
 
 from __future__ import annotations
 
 import sys
 
-from gdiet_tpu_torch import __version__, config as cfg
+from gdiet_tpu_torch import __version__, config as cfg, debug
 
 SR_PRESETS = {"sr", "short"}
-LR_PRESETS = {"map-hifi", "map-ont", "map-pb", "map-ccs"}
 
 _NUM_SUFFIX = {"k": 1e3, "K": 1e3, "m": 1e6, "M": 1e6, "g": 1e9, "G": 1e9}
 
@@ -104,25 +105,38 @@ def _tokenize(argv: list[str]):
     return out, pos
 
 
-HELP = """Usage: python -m gdiet_tpu_torch [options] <target.fa>|<target.gdi.npz> <query.fq> [<query2.fq>]
-Short-read (-x sr) and long-read (-x map-hifi|map-ont|map-pb|map-ccs)
-mapping to SAM on a GPU with PyTorch/CUDA; two short-read query files map
-as pairs. Options:
-  -x STR     preset: sr, map-hifi, map-ont, map-pb, map-ccs
-  -Z STR/-W INT  sparsification pattern / its length
-  -i FLOAT   max seeds for pattern-shift inference (a count if >= 1,
-             a fraction of the read length if < 1)
+HELP = """Usage: python -m gdiet_tpu_torch [options] <target.fa>|<target.gdi.npz> [query.fa/q [...]]
+The gdiet_tpu read mapper on a GPU with PyTorch/CUDA. Options mirror the
+reference GDiet binaries; presets sr/short select the short-read pipeline,
+all others the long-read pipeline (override with --variant short|long).
+Key options:
+  -x STR     preset: sr, map-ont, map-hifi, map-pb, asm5/10/20, ava-*
+  -Z STR     1/0 sparsification pattern (e.g. 10, 110, 1110)  [11]
+  -W INT     pattern length  [2]
+  -i FLOAT   max seeds for pattern-shift inference (<1: fraction of read)
   -k/-w INT  k-mer size / minimizer window
-  -a         SAM output (required)      -o FILE  output [stdout]
-  -d FILE    dump the index (npz)       -t INT   host threads
+  -d FILE    dump the index to FILE (npz)
+  -a         output SAM (default PAF)   -c  PAF with CIGAR (cg:Z)
+  --MD, --cs[=short|long|none]   MD / cs tags;  -y  copy FASTQ comments
+  -o FILE    output file  [stdout]
+  -t INT     host worker threads
+  -N INT     max secondary alignments
   -r ...     bandwidth: short: frac[,min,max]; long: INT
-  -N INT  -n F[,F2]  -s INT  -A/-B/-O/-E  --AF_max_loc INT
+  -n F[,F2]  vote threshold fraction [, recovery fraction]
+  -s INT     min DP score to output
+  -I NUM     index part size; with --split-prefix, map part by part
+  --AF_max_loc INT   short-read: max voted locations per read
   --vt_dis/--vt_nb_loc/--vt_cov/--vt_df1/--vt_df2/--vt_f   long-read voting
+  --split-reads NUM  cut reads longer than NUM into chunks
+  --secondary yes|no   output secondary alignments
   --device DEV   torch device [cuda]
+  --version  print version
 """
 
 
-def _apply(name, arg, io, mo, st) -> None:
+def _apply(name: str, arg, io, mo, st) -> int | None:
+    """One option (gdiet_tpu/cli.py:188-414). Returns an exit code where
+    the option ends the run (-h, -V)."""
     if name == "w":
         io.w = int(arg)
     elif name == "k":
@@ -132,28 +146,106 @@ def _apply(name, arg, io, mo, st) -> None:
     elif name == "W":
         io.pattern_len = mo.pattern_len = int(arg)
     elif name == "i":
-        mo.max_seeds = float(arg) if float(arg) >= 0 else 0.1
+        mo.max_seeds = float(arg)
+        if mo.max_seeds < 0:
+            mo.max_seeds = 0.1
+    elif name == "H":
+        io.flag |= cfg.MM_I_HPC
     elif name == "d":
         st["fnw"] = arg
     elif name == "t":
         st["n_threads"] = int(arg)
     elif name == "v":
         st["verbose"] = int(arg)
+    elif name == "g":
+        mo.max_gap = _parse_num(arg)
+    elif name == "F":
+        parts = arg.split(",")
+        mo.max_frag_len = _parse_num(parts[0])
+        if len(parts) > 1:
+            mo.max_nb_rounds = int(parts[1])
     elif name == "N":
         mo.best_n = int(arg)
+    elif name == "p":
+        mo.pri_ratio = float(arg)
+    elif name == "M":
+        mo.mask_level = float(arg)
+    elif name == "c":
+        mo.flag |= cfg.MM_F_OUT_CG | cfg.MM_F_CIGAR
     elif name == "a":
         mo.flag |= cfg.MM_F_OUT_SAM | cfg.MM_F_CIGAR
+    elif name == "Q":
+        mo.flag |= cfg.MM_F_NO_QUAL
     elif name == "Y":
         mo.flag |= cfg.MM_F_SOFTCLIP
+    elif name == "L":
+        mo.flag |= cfg.MM_F_LONG_CIGAR
+    elif name == "y":
+        mo.flag |= cfg.MM_F_COPY_COMMENT
+    elif name == "T":
+        mo.sdust_thres = int(arg)
     elif name == "n":
         parts = arg.split(",")
         mo.min_cnt = float(parts[0])
         if len(parts) > 1:
             mo.rec_threshold_frac = float(parts[1])
+    elif name == "m":
+        mo.min_chain_score = int(arg)
     elif name == "A":
         mo.a = int(arg)
     elif name == "B":
         mo.b = int(arg)
+    elif name == "s":
+        mo.min_dp_max = int(arg)
+    elif name == "I":
+        io.batch_size = _parse_num(arg)
+    elif name in ("K", "batch"):
+        mo.mini_batch_size = _parse_num(arg)
+    elif name == "e":
+        mo.occ_dist = _parse_num(arg)
+    elif name in ("h", "help"):
+        print(HELP)
+        return 0
+    elif name == "2":
+        mo.flag |= cfg.MM_F_2_IO_THREADS
+    elif name == "o":
+        st["out_path"] = arg
+    elif name in ("V", "version"):
+        print(__version__)
+        return 0
+    elif name == "r":
+        if st["variant"] == "lr":
+            mo.bw = int(float(arg) + 0.499)
+        else:
+            parts = arg.split(",")
+            x = float(parts[0])
+            if x < 1.0:
+                mo.bw_frac = x
+                if len(parts) > 1:
+                    mo.bw_min = int(parts[1])
+                if len(parts) > 2:
+                    mo.bw_max = int(parts[2])
+            else:
+                mo.bw = int(x + 0.499)
+    elif name == "U":
+        parts = arg.split(",")
+        mo.min_mid_occ = int(parts[0])
+        if len(parts) > 1:
+            mo.max_mid_occ = int(parts[1])
+    elif name == "f":
+        parts = arg.split(",")
+        x = float(parts[0])
+        if x < 1.0:
+            mo.mid_occ_frac, mo.mid_occ = x, 0
+        else:
+            mo.mid_occ = int(x + 0.499)
+        if len(parts) > 1:
+            mo.max_occ = int(float(parts[1]) + 0.499)
+    elif name == "z":
+        parts = arg.split(",")
+        mo.zdrop = mo.zdrop_inv = int(parts[0])
+        if len(parts) > 1:
+            mo.zdrop_inv = int(parts[1])
     elif name == "O":
         parts = arg.split(",")
         mo.q = mo.q2 = int(parts[0])
@@ -164,47 +256,43 @@ def _apply(name, arg, io, mo, st) -> None:
         mo.e = mo.e2 = int(parts[0])
         if len(parts) > 1:
             mo.e2 = int(parts[1])
-    elif name == "s":
-        mo.min_dp_max = int(arg)
-    elif name == "e":
-        mo.occ_dist = _parse_num(arg)
-    elif name == "f":
-        parts = arg.split(",")
-        x = float(parts[0])
-        if x < 1.0:
-            mo.mid_occ_frac, mo.mid_occ = x, 0
-        else:
-            mo.mid_occ = int(x + 0.499)
-        if len(parts) > 1:
-            mo.max_occ = int(float(parts[1]) + 0.499)
-    elif name == "U":
-        parts = arg.split(",")
-        mo.min_mid_occ = int(parts[0])
-        if len(parts) > 1:
-            mo.max_mid_occ = int(parts[1])
-    elif name == "o":
-        st["out_path"] = arg
-    elif name == "r":
-        if st["variant"] == "lr":
-            mo.bw = int(float(arg) + 0.499)
-            return
-        parts = arg.split(",")
-        x = float(parts[0])
-        if x < 1.0:
-            mo.bw_frac = x
-            if len(parts) > 1:
-                mo.bw_min = int(parts[1])
-            if len(parts) > 2:
-                mo.bw_max = int(parts[2])
-        else:
-            mo.bw = int(x + 0.499)
+    elif name == "bucket-bits":
+        io.bucket_bits = int(arg)
+    elif name == "seed":
+        mo.seed = int(arg)
+    elif name == "min-occ-floor":
+        mo.min_mid_occ = int(arg)
     elif name == "q-occ-frac":
         mo.q_occ_frac = float(arg)
+    elif name == "max-qlen":
+        mo.max_qlen = _parse_num(arg)
+    elif name == "idx-no-seq":
+        io.flag |= cfg.MM_I_NO_SEQ
+    elif name == "eqx":
+        mo.flag |= cfg.MM_F_EQX
+    elif name == "MD":
+        mo.flag |= cfg.MM_F_OUT_MD
+    elif name == "cs":
+        mo.flag |= cfg.MM_F_OUT_CS | cfg.MM_F_CIGAR
+        if arg == "long":
+            mo.flag |= cfg.MM_F_OUT_CS_LONG
+        elif arg == "none":
+            mo.flag &= ~cfg.MM_F_OUT_CS
+        else:
+            mo.flag &= ~cfg.MM_F_OUT_CS_LONG
+    elif name == "paf-no-hit":
+        mo.flag |= cfg.MM_F_PAF_NO_HIT
+    elif name == "for-only":
+        mo.flag |= cfg.MM_F_FOR_ONLY
+    elif name == "rev-only":
+        mo.flag |= cfg.MM_F_REV_ONLY
+    elif name == "split-prefix":
+        mo.split_prefix = arg
     elif name == "AF_dis":
         mo.AF_dis = float(arg)
     elif name == "AF_max_loc":
         mo.AF_max_loc = int(float(arg))
-    elif name in ("vt_dis", "vt_nb_loc"):
+    elif name in ("vt_dis", "vt_nb_loc", "max_max_gap", "max_min_gap"):
         setattr(mo, name, int(arg))
     elif name in ("vt_cov", "vt_df1", "vt_df2", "vt_f"):
         setattr(mo, name, float(arg))
@@ -213,14 +301,39 @@ def _apply(name, arg, io, mo, st) -> None:
             mo.flag &= ~cfg.MM_F_NO_PRINT_2ND
         elif arg in ("no", "n"):
             mo.flag |= cfg.MM_F_NO_PRINT_2ND
+    elif name == "sort":
+        if arg == "radix":
+            mo.flag = (mo.flag | cfg.MM_F_RADIX_SORT) & ~cfg.MM_F_HEAP_SORT
+        elif arg == "heap":
+            mo.flag = (mo.flag | cfg.MM_F_HEAP_SORT) & ~cfg.MM_F_RADIX_SORT
+        elif arg == "merge":
+            mo.flag &= ~(cfg.MM_F_HEAP_SORT | cfg.MM_F_RADIX_SORT)
+        else:
+            raise SystemExit("[ERROR]: Unknown sort algorithm (merge, radix, heap)")
+    elif name == "G":
+        mo.max_gap_ref = _parse_num(arg)
     elif name == "frag":
         if arg in ("yes", "y", None):
             mo.flag |= cfg.MM_F_FRAG_MODE
         elif arg in ("no", "n"):
             mo.flag &= ~cfg.MM_F_FRAG_MODE
-    else:
-        raise SystemExit(f"[ERROR] option '{'--' if len(name) > 1 else '-'}{name}' "
-                         "is not supported by gdiet_tpu_torch yet")
+    elif name == "mesh":
+        # --mesh DATAxREF; multi-device mapping raises in runtime.run_mapping
+        parts = arg.lower().split("x")
+        mo.mesh_shape = (int(parts[0]), int(parts[1]) if len(parts) > 1 else 1)
+    elif name == "split-reads":
+        mo.split_len = _parse_num(arg)
+    elif name == "print-seeds":
+        # stage-trace oracle (main.c:289-298): every read maps through the
+        # scalar oracle on one thread, tracing to stderr
+        debug.set_print_seed(True)
+        st["n_threads"] = 1
+    elif st["verbose"] >= 2:
+        # parsed for compatibility; dead in the GDiet hot path
+        print(f"[WARNING]\x1b[1;31m option '{'--' if len(name) > 1 else '-'}{name}"
+              f" is accepted but has no effect in gdiet_tpu_torch\x1b[0m",
+              file=sys.stderr)
+    return None
 
 
 def main(argv: list | None = None) -> int:
@@ -239,29 +352,26 @@ def main(argv: list | None = None) -> int:
             rest.append(argv[i])
             i += 1
     opts, pos = _tokenize(rest)
-    names = {n for n, _ in opts}
-    if names & {"h", "help"}:
-        print(HELP)
-        return 0
-    if names & {"V", "version"}:
-        print(__version__)
-        return 0
     # pass 1: preset and variant (main.c:148-162)
-    preset = next((a for n, a in opts if n == "x"), None)
-    variant = next((a for n, a in opts if n == "variant"), None)
-    if variant is not None:
-        variant = {"short": "sr", "sr": "sr", "long": "lr", "lr": "lr"}.get(variant)
-        if variant is None:
-            raise SystemExit("[ERROR] unknown variant (short|long)")
-    if preset not in SR_PRESETS | LR_PRESETS:
-        raise SystemExit("[ERROR] gdiet_tpu_torch maps with the presets "
-                         f"{', '.join(sorted(SR_PRESETS | LR_PRESETS))}: give -x")
+    preset = None
+    variant = None
+    for name, arg in opts:
+        if name == "x":
+            preset = arg
+        elif name == "variant":
+            variant = {"short": "sr", "sr": "sr", "long": "lr", "lr": "lr"}.get(arg)
+            if variant is None:
+                raise SystemExit(f"[ERROR] unknown variant '{arg}'")
     if variant is None:
         variant = "sr" if preset in SR_PRESETS else "lr"
     io, mo = cfg.IndexOptions(), cfg.MapOptions()
     if variant == "lr":
         mo.bw = 1000
-    cfg.set_preset(preset, io, mo)
+    if preset is not None:
+        try:
+            cfg.set_preset(preset, io, mo)
+        except ValueError as ex:
+            raise SystemExit(f"[ERROR] {ex}")
     if variant == "lr":
         cfg.apply_cli_defaults_lr(io, mo)
     else:
@@ -270,7 +380,9 @@ def main(argv: list | None = None) -> int:
           "variant": variant}
     for name, arg in opts:
         if name not in ("x", "variant"):
-            _apply(name, arg, io, mo, st)
+            rc = _apply(name, arg, io, mo, st)
+            if rc is not None:
+                return rc
     if io.pattern_len < 2:
         io.pattern_len = mo.pattern_len = 2
         io.pattern = mo.pattern = "11"

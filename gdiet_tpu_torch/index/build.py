@@ -8,7 +8,8 @@ built for an explicit ``device``: the merged-row cuckoo probe table and the
 2-bit packed reference with its N mask.
 
 ``build_index`` sketches each sequence with the port's ``sketch_emit_build``
-on the index's device and sorts the minimizers with the native radix sort.
+on the index's device and sorts the minimizers with the native radix sort;
+``build_index_parts`` builds the parts of a split index (``-I``).
 """
 
 from __future__ import annotations
@@ -140,6 +141,22 @@ class TorchIndex:
         if mo.max_mid_occ > mo.min_mid_occ:
             mid = min(mid, mo.max_mid_occ)
         return mid
+
+    def stats(self) -> dict:
+        """mm_idx_stat (index.c:102-127), as gdiet_tpu/index/build.py:182-196."""
+        counts = self.starts[1:] - self.starts[:-1]
+        n = len(self.keys)
+        total = int(self.lengths.sum())
+        return {
+            "kmer_size": self.k,
+            "skip": self.w,
+            "n_seq": self.n_seq,
+            "distinct_minimizers": n,
+            "pct_singletons": 100.0 * float((counts == 1).sum()) / n if n else 0.0,
+            "avg_occurrences": float(counts.mean()) if n else 0.0,
+            "avg_spacing": total / float(counts.sum()) if n else 0.0,
+            "total_length": total,
+        }
 
     # ---- device tables ----------------------------------------------------
     def device_cuckoo_kv(self):
@@ -325,3 +342,22 @@ def build_index(seqs, io, device) -> TorchIndex:
         keys=uniq, starts=starts, positions=ys, flag=io.flag,
         device=torch.device(device),
     )
+
+
+def build_index_parts(seqs, io, device):
+    """Multi-part indexing (mm_idx_reader_read with -I batch_size,
+    index.c:624-640; gdiet_tpu/index/build.py:442-460): sequences
+    accumulate into parts of ~batch_size bases, each built on ``device``.
+    Yields (TorchIndex, rid_shift) per part."""
+    part: list = []
+    total = 0
+    shift = 0
+    for name, seq in seqs:
+        part.append((name, seq))
+        total += len(seq)
+        if total >= io.batch_size:
+            yield build_index(part, io, device), shift
+            shift += len(part)
+            part, total = [], 0
+    if part:
+        yield build_index(part, io, device), shift

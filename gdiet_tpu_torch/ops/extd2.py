@@ -36,8 +36,8 @@ from gdiet_tpu_torch.ops import dp, dp_band, dp_fold
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-# one shared library per csrc/<name>.cu
-KERNELS = ("extd2", "extd2_fold", "extd2_band", "backtrack_band")
+# one shared library per csrc/<name>.cu (vote_scan's wrapper: ops/vote.py)
+KERNELS = ("extd2", "extd2_fold", "extd2_band", "backtrack_band", "vote_scan")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -103,6 +103,7 @@ ENTRIES = {
     "extd2_fold": ("gdiet_extd2_fold", [_P] * 7 + [_I64] * 8 + [_I] * 8 + [_P]),
     "extd2_band": ("gdiet_extd2_band", [_P] * 7 + [_I64] * 6 + [_I] * 10 + [_P]),
     "backtrack_band": ("gdiet_backtrack_band", [_P] * 7 + [_I64] * 8 + [_I] * 2 + [_P]),
+    "vote_scan": ("gdiet_vote_scan", [_P] * 18 + [_I64] * 2 + [_I] + [_P]),
 }
 
 

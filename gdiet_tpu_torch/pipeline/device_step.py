@@ -21,7 +21,8 @@ CPU too, through the plain fold version.
 uint64 values are int64 bit patterns (``gdiet_tpu_torch/u64.py``). TPU
 gather workarounds (one-hot matmul selects, chunk-row window gathers) are
 plain gathers here, with indices clamped explicitly where JAX clamps
-silently. The vote scan is a plain torch loop.
+silently. The vote scan runs through ``ops/vote.py``: ``csrc/vote_scan.cu``
+on the card, the plain loop ``vote_scan`` below on the CPU.
 
 ``backtrack_antidiag`` is the plain version of ``csrc/backtrack_band.cu``
 for every dirs layout: full width and folded (this step) and the banded
@@ -41,7 +42,7 @@ import numpy as np
 import torch
 
 from gdiet_tpu_torch import config, pattern, u64
-from gdiet_tpu_torch.ops import LaunchCount, extd2
+from gdiet_tpu_torch.ops import LaunchCount, extd2, vote
 from gdiet_tpu_torch.ops.dp import CIGAR_DEL, CIGAR_INS, CIGAR_MATCH
 from gdiet_tpu_torch.ops.dp_band import DP_UNROLL, window_base, window_geometry
 from gdiet_tpu_torch.ops.dp_fold import FOLD_GAP, fold_geometry
@@ -52,6 +53,7 @@ I64 = torch.int64
 I32 = torch.int32
 
 backtrack_calls = LaunchCount()
+vote_calls = LaunchCount()
 
 
 @dataclass(frozen=True)
@@ -373,12 +375,15 @@ def collect_hits(codes, lens, tables: dict, cfg: StepConfig):
 # ---------------------------------------------------------------------------
 # phase 4: vote (plain loop over the hit stream)
 # ---------------------------------------------------------------------------
-def vote_scan(keys, qpos, valid, strand: list, vt_distance, vt_threshold,
+def vote_scan(keys, qpos, valid, strand, vt_distance, vt_threshold,
               vt_rec_threshold, K: int) -> dict:
     """vote (map.c:447-584) over the concatenated fwd/rev hit stream
     (device_step.py:53-170): top-K candidates kept by the reference's
     insertion (one backward bubble pass) plus the recovery candidate.
-    ``strand`` is the per-column strand (python ints)."""
+    ``strand`` [M] int is the per-column strand. The plain version of
+    ``csrc/vote_scan.cu``; ``vote_calls`` counts its calls."""
+    vote_calls.n += 1
+    strand = strand.tolist()
     B, M = keys.shape
     dev = keys.device
 
@@ -388,29 +393,28 @@ def vote_scan(keys, qpos, valid, strand: list, vt_distance, vt_threshold,
 
     head_t, head_valid = z(I64), z(torch.bool)
     head_str, fq, lq, cnt = z(I32), z(I32), z(I32), z(I32)
-    k_score, k_target = z(I32, K, -1), z(I64, K)
-    k_fq, k_lq, k_str = z(I32, K), z(I32, K), z(I32, K)
+    # the K slots' (score, target, fq, lq, strand), one int64 tensor
+    slots = torch.zeros((B, K, 5), dtype=I64, device=dev)
+    slots[:, :, 0] = -1
     out_len = z(I32)
     r_score, r_target, r_fq, r_lq, r_str = z(I32), z(I64), z(I32), z(I32), z(I32)
 
     def emit(do_emit):
-        nonlocal k_score, k_target, k_fq, k_lq, k_str, out_len
-        nonlocal r_score, r_target, r_fq, r_lq, r_str
+        nonlocal slots, out_len, r_score, r_target, r_fq, r_lq, r_str
         passes = do_emit & (cnt > vt_threshold)
         full = out_len == K
-        insert = passes & ~(full & (k_score[:, K - 1] >= cnt))
-        slot = torch.where(full, K - 1, out_len).to(I64)
-        ins = insert[:, None] & (torch.arange(K, device=dev)[None, :] == slot[:, None])
-        cols = [torch.where(ins, val[:, None], arr) for arr, val in (
-            (k_score, cnt), (k_target, head_t), (k_fq, fq), (k_lq, lq),
-            (k_str, head_str))]
-        for kk in range(K - 1, 0, -1):  # the reference's insertion loop
-            swap = insert & (cols[0][:, kk] > cols[0][:, kk - 1])
-            for c in cols:
-                a, b = c[:, kk - 1].clone(), c[:, kk].clone()
-                c[:, kk] = torch.where(swap, a, b)
-                c[:, kk - 1] = torch.where(swap, b, a)
-        k_score, k_target, k_fq, k_lq, k_str = cols
+        insert = passes & ~(full & (slots[:, K - 1, 0] >= cnt))
+        if bool(insert.any()):
+            slot = torch.where(full, K - 1, out_len).to(I64)
+            ins = insert[:, None] & (torch.arange(K, device=dev)[None, :] == slot[:, None])
+            val = torch.stack([cnt.to(I64), head_t, fq.to(I64), lq.to(I64),
+                               head_str.to(I64)], 1)
+            slots = torch.where(ins[:, :, None], val[:, None, :], slots)
+            for kk in range(K - 1, 0, -1):  # the reference's insertion loop
+                swap = (insert & (slots[:, kk, 0] > slots[:, kk - 1, 0]))[:, None]
+                a, b = slots[:, kk - 1].clone(), slots[:, kk].clone()
+                slots[:, kk] = torch.where(swap, a, b)
+                slots[:, kk - 1] = torch.where(swap, b, a)
         new_len = torch.where(insert & ~full, out_len + 1, out_len)
         rec = (do_emit & ~passes & (out_len == 0) & (cnt > vt_rec_threshold)
                & (cnt > r_score))
@@ -421,7 +425,13 @@ def vote_scan(keys, qpos, valid, strand: list, vt_distance, vt_threshold,
         r_lq = torch.where(rec, lq, r_lq)
         r_str = torch.where(rec, head_str, r_str)
 
+    # a column with no valid hit in any row, after another such column (or
+    # first), changes no output: every run has ended and no head is valid,
+    # and the next valid column starts its run afresh
+    live = valid.any(0).tolist()
     for m in range(M):
+        if not live[m] and (m == 0 or not live[m - 1]):
+            continue
         t, q, ok, sgn = keys[:, m], qpos[:, m], valid[:, m], strand[m]
         in_run = head_valid & ok & (head_str == sgn) & u64.ule(t - head_t, vt_distance)
         ext_f = in_run & (q < fq)
@@ -436,8 +446,10 @@ def vote_scan(keys, qpos, valid, strand: list, vt_distance, vt_threshold,
         head_valid = in_run | ok
         head_str = torch.where(in_run, head_str, sgn)
     emit(head_valid)
-    return {"k_score": k_score, "k_target": k_target, "k_fq": k_fq,
-            "k_lq": k_lq, "k_str": k_str, "out_len": out_len,
+    k_score, k_target, k_fq, k_lq, k_str = slots.unbind(2)
+    return {"k_score": k_score.to(I32), "k_target": k_target.contiguous(),
+            "k_fq": k_fq.to(I32), "k_lq": k_lq.to(I32), "k_str": k_str.to(I32),
+            "out_len": out_len,
             "r_score": r_score, "r_target": r_target, "r_fq": r_fq,
             "r_lq": r_lq, "r_str": r_str}
 
@@ -625,9 +637,10 @@ def fused_map_step(codes, lens, tables: dict, cfg: StepConfig,
     bq = torch.zeros((B, 1), dtype=I32, device=dev)
     bok = torch.zeros((B, 1), dtype=torch.bool, device=dev)
     A = cfg.A
-    vt = vote_scan(
+    vt = vote.vote_scan(
         torch.cat([fk, barrier, rk, barrier], 1), torch.cat([fq, bq, rq, bq], 1),
-        torch.cat([fok, bok, rok, bok], 1), [0] * (A + 1) + [1] * (A + 1),
+        torch.cat([fok, bok, rok, bok], 1),
+        (torch.arange(2 * (A + 1), device=dev) > A).to(I32),
         bw, vt_thr.to(I32), vt_rec.to(I32), K)
     _mark("vote")
     if upto == "vote":

@@ -1,13 +1,22 @@
-"""Batched short-read mapping to SAM: fused step on the device + native
-host finish, with a wider retry tier and the scalar-oracle fallback.
+"""Batched short-read mapping: fused step on the device + host finish, with
+a wider retry tier and the scalar-oracle fallback.
 
 Port of ``gdiet_tpu/pipeline/shortread.py::ShortReadMapper`` (single-end
-and paired-end SR; see that module for the design). Single-end reads
-outside the fixed-shape envelope (length > 300, budget overflows,
-occurrence streaks, an active query-occ filter, window geometry outside the
-budget) are re-mapped by the wider-budget retry tier and then, if still
-outside, by the scalar oracle, so the SAM is identical to the reference's.
-Paired-end pairs outside it take the oracle directly, as in ``gdiet_tpu``.
+and paired-end SR; see that module for the design). Two outputs:
+
+- regs (``map_batch``, ``map_stream``): per read, the list of
+  ``oracle.align.Reg`` that the generic per-record writer, ``--split-prefix``
+  and the ``Aligner`` API format; no SAM strings are built. A batch is
+  mapped in device sub-batches of ``sub_batch_reads(cfg)`` reads.
+- SAM text (``map_stream_sam``, ``map_stream_sam_pe``): the native host
+  finish writes the records of a batch in one call.
+
+Single-end reads outside the fixed-shape envelope (length > 300, budget
+overflows, occurrence streaks, an active query-occ filter, window geometry
+outside the budget) are re-mapped by the wider-budget retry tier and then,
+if still outside, by the scalar oracle, so the output is identical to the
+reference's. Paired-end pairs outside it take the oracle directly, as in
+``gdiet_tpu``.
 
 Not ported yet: the multi-device mesh and the five-stage profile re-run
 (``NotImplementedError``).
@@ -15,6 +24,7 @@ Not ported yet: the multi-device mesh and the five-stage profile re-run
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 import time
@@ -32,6 +42,27 @@ from gdiet_tpu_torch.ops.dp import cigars_from_ops
 from gdiet_tpu_torch.pipeline.device_step import (TorchFusedMapper,
                                                   unpack_ops, unpack_outputs)
 from gdiet_tpu_torch.utils.profile import PROFILE, Stage
+
+
+# device memory that one fused call of the regs path may take, and the
+# hit streams' share per hit slot (the streams, their concatenated copy and
+# the expansion's temporaries): chip_smoke.py's generic phase measured a
+# peak of 317 KB per read at A = 2,048, K = 2, Lmax 256 on an NVIDIA H100
+# 80GB HBM3, of which 131 KB are DP dirs, so ~45 bytes per slot
+DEVICE_BYTES = 24 << 30
+STREAM_BYTES_PER_HIT = 48
+
+
+def sub_batch_reads(cfg) -> int:
+    """Reads per fused call on the regs path (map_batch, map_stream): the
+    hit streams of A slots per strand and the DP dirs of the K * dp_frac
+    rows of a read, (2 Lmax - 1) wavefronts x round16(Lmax) bytes each,
+    within DEVICE_BYTES; at least 1,024 and at most 65,536 reads. At the
+    default budgets (A = 2,048, Lmax 256, K = 20) a whole 50 Mbp mini-batch
+    (~333k reads of 150 bp) would not fit on an 80 GB card."""
+    stream = STREAM_BYTES_PER_HIT * 2 * (cfg.A + 1)
+    dirs = cfg.K * cfg.dp_frac * (2 * cfg.Lmax - 1) * (-(-cfg.Lmax // 16) * 16)
+    return int(max(1024, min(65536, DEVICE_BYTES // (stream + dirs))))
 
 
 class ShortReadMapper:
@@ -64,6 +95,7 @@ class ShortReadMapper:
         self.n_threads = max(1, n_threads)
         self._pool = None
         self._rn = None
+        self.device_batch = sub_batch_reads(self.fused.cfg)
         self.stats = {"fallback_reads": 0, "n_records": 0}
 
     def _map_oracle(self, fn, items):
@@ -111,7 +143,89 @@ class ShortReadMapper:
         return out
 
     # ------------------------------------------------------------------
-    def _prepare_and_dispatch(self, reads):
+    def map_batch(self, reads: list) -> list:
+        """Regs per read (a list of ``oracle.align.Reg``, empty when the
+        read is unmapped), in read order (shortread.py:181-183). A batch
+        larger than ``self.device_batch`` (``sub_batch_reads``) reads maps in
+        device sub-batches of that size: reads map independently, so the
+        regs are the same."""
+        DB = self.device_batch
+        out: list = []
+        for s0 in range(0, len(reads), DB):
+            state = self._prepare_and_dispatch(reads[s0:s0 + DB], sam=False)
+            out += self._finish(state, self._fetch_state(state))
+        return out
+
+    def map_stream(self, batches):
+        """Pipelined ``map_batch`` over an iterable of read lists: yields
+        one list of regs per batch, in order (shortread.py:185-196). A
+        producer thread dispatches (sub-)batch k+1 before batch k's host
+        finish runs here."""
+        DB = self.device_batch
+        parts: collections.deque = collections.deque()  # [pieces left, regs]
+
+        def pieces():
+            for batch in batches:
+                n = max(1, -(-len(batch) // DB))
+                parts.append([n, []])
+                for s0 in range(n):
+                    yield batch[s0 * DB:(s0 + 1) * DB]
+
+        for regs in self._pipelined(
+                pieces(), lambda reads, n: self._prepare_and_dispatch(reads, sam=False),
+                self._fetch_state, self._finish):
+            cur = parts[0]
+            cur[1] += regs
+            cur[0] -= 1
+            if cur[0] == 0:
+                parts.popleft()
+                yield cur[1]
+
+    def _fetch_state(self, state):
+        """(meta, ops) numpy of a dispatched batch, None if nothing was
+        dispatched."""
+        dev, device_idx = state[5], state[4]
+        if dev is None:
+            return None
+        with PROFILE.stage(Stage.DEVICE_FUSED):
+            return self.fused.fetch(dev, len(device_idx))
+
+    def _finish(self, state, fetched) -> list:
+        """Regs per read of one dispatched batch (shortread.py:260-287):
+        the device rows through ``_finish_device``, rows that fell back
+        through the retry tier, the rest and the host-only reads through
+        the scalar oracle."""
+        reads, codes, lens, host_only, device_idx = state[:5]
+        host_only = host_only.copy()
+        results: list = [None] * len(reads)
+        retry_i: list = []
+        if fetched is not None:
+            with PROFILE.stage(Stage.HOST_FINISH):
+                dev_results, fb = self._finish_device(
+                    fetched, codes[device_idx], lens[device_idx], self.fused.cfg.K)
+            for j, i in enumerate(device_idx):
+                if fb[j]:
+                    retry_i.append(i)
+                else:
+                    results[i] = dev_results[j]
+        if retry_i:  # the wider device tier before the oracle
+            retried = self._retry_batch_regs([reads[i] for i in retry_i])
+            for i, regs in zip(retry_i, retried):
+                if regs is not None:
+                    results[i] = regs
+                else:
+                    host_only[i] = True
+            self.stats["retried_reads"] = self.stats.get("retried_reads", 0) + len(retry_i)
+        idx = np.where(host_only)[0].tolist()
+        for i, regs in zip(idx, self._map_oracle(
+                lambda i: oracle_pipeline.map_read(
+                    self.mi.oracle_view(), reads[i].seq, self.mo, self.mid_occ,
+                    reads[i].name), idx)):
+            results[i] = regs
+        self.stats["fallback_reads"] += len(idx)
+        return results
+
+    def _prepare_and_dispatch(self, reads, sam: bool = True):
         _t0 = time.perf_counter_ns()
         codes, lens = self.native.encode_batch([r.seq for r in reads], self.Lmax)
         host_only = lens > min(300, self.Lmax)
@@ -127,7 +241,7 @@ class ShortReadMapper:
             dev = self.fused(codes[device_idx], lens[device_idx])
         PROFILE.add(Stage.HOST_PREP, time.perf_counter_ns() - _t0)
         blobs = None
-        if dev is not None:
+        if sam and dev is not None:  # SAM strings built while the step runs
             with PROFILE.stage(Stage.HOST_BLOBS):
                 blobs = self.native.make_sr_blobs(
                     [reads[i].name for i in device_idx],
@@ -176,17 +290,10 @@ class ShortReadMapper:
         blob of newline-terminated records per batch of reads, in read
         order (shortread.py:290-356). Accumulates ``self.stats``."""
         self.stats = {"fallback_reads": 0, "n_records": 0}
-
-        def fetch(state):
-            dev, device_idx = state[5], state[4]
-            if dev is None:
-                return None
-            with PROFILE.stage(Stage.DEVICE_FUSED):
-                return self.fused.fetch(dev, len(device_idx))
-
         return self._pipelined(
             batches, lambda reads, n: (*self._prepare_and_dispatch(reads), n),
-            fetch, lambda state, fetched: self._finish_sam(state, rep_len, fetched))
+            self._fetch_state,
+            lambda state, fetched: self._finish_sam(state, rep_len, fetched))
 
     # ------------------------------------------------------------------
     # Paired-end (shortread.py:483-659): both ends map as ordinary fused-

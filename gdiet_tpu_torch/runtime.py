@@ -1,15 +1,26 @@
 """File-level mapping driver of the port (the mm_map_file analog).
 
-Port of ``gdiet_tpu/runtime.py`` for the SAM paths. Short reads, single-end
-(``_run_sr_sam_fast``): fixed-shape batches through
-``ShortReadMapper.map_stream_sam`` with one-batch lookahead, budgets scaled
-to the observed read length, and an adaptive re-tier to a wider Lmax when
-long reads keep arriving. Short reads, paired-end (``_run_sr_pe_sam_fast``):
-pairs from two FASTQs through ``map_stream_sam_pe``. Long reads (the
-generic per-record path, ``runtime.py:516-674``): fragment batches of
-``mini_batch_size`` bases through ``LongReadMapper.map_stream``, one SAM
-record per region. PAF, ``--split-prefix``/``--split-reads``, ``--mesh``
-and ``-y/--MD/--cs/-c`` raise ``NotImplementedError``.
+Port of ``gdiet_tpu/runtime.py``. ``run_mapping`` routes a run exactly as
+``gdiet_tpu`` does (``runtime.py:463-514``):
+
+- ``--split-prefix`` with a FASTA target larger than ``-I``:
+  ``run_split_mapping``, one index part at a time through ``map_batch``,
+  then the parts' regs merged and re-ranked (``runtime.py:80-189``);
+- short reads, single-end, plain SAM (``run_sr_sam``): fixed-shape batches
+  through ``ShortReadMapper.map_stream_sam`` with one-batch lookahead,
+  budgets scaled to the observed read length, and an adaptive re-tier to
+  a wider Lmax when long reads keep arriving;
+- short reads, paired-end, plain SAM (``run_sr_pe_sam``): pairs from two
+  FASTQs through ``map_stream_sam_pe``;
+- everything else (``run_generic``, the per-record writer of
+  ``runtime.py:516-674``): long reads, PAF (``-c``, ``--paf-no-hit``),
+  ``-y/--MD/--cs``, ``-T``, ``--print-seeds``, ``--split-reads``,
+  ``GDIET_NO_PE_FAST``, ``pe_ori < 0``, no CIGAR, more than one short-read
+  query file: fragment batches of ``mini_batch_size`` bases through
+  ``map_stream``, one record per region.
+
+``--mesh`` and a ``GDIET_COORDINATOR`` join (multi-device mapping) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,7 +35,8 @@ import torch
 from gdiet_tpu_torch import __version__, config as cfg, debug
 from gdiet_tpu_torch.index.build import TorchIndex, build_index
 from gdiet_tpu_torch.io import sam as samio
-from gdiet_tpu_torch.io.fastx import SeqRecord, read_fastx, read_frag_batches
+from gdiet_tpu_torch.io.fastx import (SeqRecord, read_fastx, read_frag_batches,
+                                      split_ultralong)
 from gdiet_tpu_torch.utils.profile import PROFILE, Stage
 
 
@@ -41,11 +53,21 @@ def load_or_build_index(target: str, io, device, verbose: int = 3,
     if TorchIndex.is_index(target):
         mi = TorchIndex.load(target, device)
         _log(verbose, t0, f"loaded prebuilt index ({mi.n_seq} sequences)")
+        if (mi.k != io.k or mi.w != io.w) and verbose >= 2:
+            print("[WARNING] Indexing parameters k/w differ from the CLI "
+                  "setting; using the index's", file=sys.stderr)
         return mi
     with PROFILE.stage(Stage.INDEXING):
         mi = build_index(((r.name, r.seq) for r in read_fastx(target)),
                          io, device)
     _log(verbose, t0, f"built the index for {mi.n_seq} target sequence(s)")
+    if verbose >= 3:  # mm_idx_stat (index.c:102-127)
+        st = mi.stats()
+        print(f"[M::mm_idx_stat] kmer size: {st['kmer_size']}; skip: "
+              f"{st['skip']}; #seq: {st['n_seq']}; distinct minimizers: "
+              f"{st['distinct_minimizers']} ({st['pct_singletons']:.2f}% are "
+              f"singletons); average occurrences: {st['avg_occurrences']:.3f}; "
+              f"average spacing: {st['avg_spacing']:.3f}", file=sys.stderr)
     return mi
 
 
@@ -63,6 +85,10 @@ def _close_and_report(bout, n_mapped: int, verbose: int, cli_line: str,
     if bout is not sys.stdout.buffer:
         bout.close()
     _log(verbose, t0, f"mapped {n_mapped} sequences")
+    _report(verbose, cli_line, t0)
+
+
+def _report(verbose: int, cli_line: str, t0: float) -> None:
     if verbose >= 3:
         rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
         print(f"[M::gdiet] Version: {__version__}", file=sys.stderr)
@@ -233,21 +259,159 @@ def run_sr_pe_sam(mi, mo, q1: str, q2: str, out_path: str | None,
     return 0
 
 
-def run_lr_sam(mi, mo, queries: list, out_path: str | None, n_threads: int,
-               verbose: int, cli_line: str, t0: float, device) -> int:
-    """Long-read + SAM path (gdiet_tpu/runtime.py:516-674, the generic
-    per-record writer): fragment batches of ``mini_batch_size`` bases
-    through ``LongReadMapper.map_stream`` with its default budgets; with
-    two files (or consecutive records sharing a qname) the segments of a
-    fragment are revcomp'd per ``pe_ori``, paired (mm_pair) and written
-    with mate fields."""
-    from gdiet_tpu_torch.oracle import hit as ohit
+
+
+def dp_fold_env() -> bool:
+    """``GDIET_DP_FOLD=1`` folds the short-read DP, as it does in gdiet_tpu."""
+    return os.environ.get("GDIET_DP_FOLD", "0") == "1"
+
+
+def _make_mapper(mi, mo, variant: str, max_read_len: int | None, device,
+                 n_threads: int = 1):
+    if variant == "sr":
+        from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
+
+        return ShortReadMapper(mi, mo, max_read_len=max_read_len or 256,
+                               n_threads=n_threads, device=device,
+                               dp_fold=dp_fold_env())
     from gdiet_tpu_torch.pipeline.longread import LongReadMapper
 
-    mapper = LongReadMapper(mi, mo, n_threads=n_threads, device=device)
-    bout = _open_sam(out_path, mi, cli_line)
+    return LongReadMapper(mi, mo, n_threads=n_threads, device=device)
+
+
+def _out_stream(out_path: str | None):
+    return open(out_path, "w") if out_path and out_path != "-" else sys.stdout
+
+
+def run_split_mapping(io, mo, variant: str, target: str, queries: list, out,
+                      verbose: int, cli_line: str, max_read_len: int | None,
+                      t0: float, device) -> int:
+    """Multi-part index mapping with the --split-prefix merge re-ranking
+    (gdiet_tpu/runtime.py:80-189: map.c:1094-1163 merge_hits + splitidx.c,
+    in memory instead of temp files): each part built on ``device`` maps
+    every read through ``map_batch``; per read, the parts' regs are merged,
+    re-ranked with the hit.c/pe.c stack and written as SAM or PAF."""
+    from gdiet_tpu_torch.index.build import build_index_parts
+    from gdiet_tpu_torch.oracle import hit as ohit
+
+    with PROFILE.stage(Stage.INDEXING):
+        refs = [(r.name, r.seq) for r in read_fastx(target)]
+        parts = list(build_index_parts(refs, io, device))
+    _log(verbose, t0, f"built {len(parts)} index part(s)")
+
+    group = queries if len(queries) == 2 else queries[:1]
+    frags = []
+    for fb in read_frag_batches(group, 1 << 62):
+        frags.extend(fb)
+    flat = [rec for frag in frags for rec in frag]
+    per_seg_regs: list = [[] for _ in flat]
+    for mi_part, rid_shift in parts:
+        mapper = _make_mapper(mi_part, mo, variant, max_read_len, device)
+        for segi, regs in enumerate(mapper.map_batch(flat)):
+            for r in regs or []:
+                r.rid += rid_shift
+                per_seg_regs[segi].append(r)
+    names: list = []
+    lens: list = []
+    for mi_part, _ in parts:
+        names.extend(mi_part.names)
+        lens.extend(int(x) for x in mi_part.lengths)
+
+    # merge re-rank per segment (merge_hits)
+    for segi, regs in enumerate(per_seg_regs):
+        rec = flat[segi]
+        if not regs:
+            continue
+        if not (mo.flag & cfg.MM_F_SR) and rec.l_seq >= mo.rank_min_len:
+            ohit.update_dp_max(rec.l_seq, regs, mo.rank_frac, mo.a, mo.b)
+        for r in regs:
+            r.dp_max2 = 0
+            r.subsc = 0
+            r.n_sub = 0
+        regs = ohit.hit_sort(regs)
+        ohit.set_parent(regs, mo.mask_level, mo.mask_len, mo.a * 2 + mo.b)
+        if not (mo.flag & cfg.MM_F_ALL_CHAINS):
+            regs = ohit.select_sub(regs, mo.pri_ratio, 2 * io.k, mo.best_n)
+            ohit.set_sam_pri(regs)
+        ohit.set_mapq(regs, mo.min_chain_score, mo.a, 0, bool(mo.flag & cfg.MM_F_SR))
+        per_seg_regs[segi] = regs
+    # paired: proper-pair flags + PE mapq blend (map.c:1157-1159)
+    segi = 0
+    for frag in frags:
+        if len(frag) == 2 and mo.pe_ori >= 0 and (mo.flag & cfg.MM_F_CIGAR):
+            ohit.pair(0, mo.pe_bonus, mo.a * 2 + mo.b, mo.a,
+                      [frag[0].l_seq, frag[1].l_seq],
+                      [per_seg_regs[segi], per_seg_regs[segi + 1]])
+        segi += len(frag)
+
+    sam_mode = bool(mo.flag & cfg.MM_F_OUT_SAM)
+    if sam_mode:
+        out.write(samio.sam_header(names, lens, cli_line, __version__))
+    segi = 0
+    n_out = 0
+    for frag in frags:
+        n = len(frag)
+        for j, rec in enumerate(frag):
+            regs = per_seg_regs[segi + j]
+            mate = per_seg_regs[segi + (j + 1) % n] if n > 1 else None
+            if regs:
+                for r in regs:
+                    if (mo.flag & cfg.MM_F_NO_PRINT_2ND) and r.id != r.parent:
+                        continue
+                    if sam_mode:
+                        out.write(samio.sam_record(
+                            rec.name, rec.seq, rec.qual, r, regs, names,
+                            mo.flag, 0, j, n, mate, comment=rec.comment) + "\n")
+                    else:
+                        out.write(samio.paf_record(
+                            rec.name, rec.l_seq, r, names, lens, 0,
+                            bool(mo.flag & cfg.MM_F_OUT_CG), mo.flag,
+                            rec.comment) + "\n")
+            elif sam_mode:
+                out.write(samio.sam_record(
+                    rec.name, rec.seq, rec.qual, None, [], names, mo.flag,
+                    0, j, n, mate, comment=rec.comment) + "\n")
+            n_out += 1
+        segi += n
+    _log(verbose, t0, f"mapped {n_out} sequences across {len(parts)} parts")
+    return 0
+
+
+def run_generic(mi, mo, variant: str, queries: list, out_path: str | None,
+                n_threads: int, verbose: int, cli_line: str, t0: float, device,
+                max_read_len: int | None = None) -> int:
+    """The per-record writer (gdiet_tpu/runtime.py:516-674): fragment
+    batches of ``mini_batch_size`` bases (``--split-reads`` cuts long reads
+    into chunks first) through ``map_stream``, one SAM or PAF record per
+    region. With two query files (or consecutive records sharing a qname)
+    the segments of a fragment are revcomp'd per ``pe_ori``, paired
+    (mm_pair) on their mapping-orientation regs, flipped back and written
+    with mate fields."""
+    from gdiet_tpu_torch.oracle import hit as ohit
+
+    mapper = _make_mapper(mi, mo, variant, max_read_len, device, n_threads)
+    out = _out_stream(out_path)
+    sam_mode = bool(mo.flag & cfg.MM_F_OUT_SAM)
+    if sam_mode:
+        out.write(samio.sam_header(mi.names, [int(x) for x in mi.lengths],
+                                   cli_line, __version__))
     names = mi.names
+    lens = [int(x) for x in mi.lengths]
     n_mapped = 0
+
+    def write(rec, r, regs, seg_idx=0, n_seg=1, mate_regs=None):
+        if sam_mode:
+            out.write(samio.sam_record(
+                rec.name, rec.seq, rec.qual, r, regs or [], names, mo.flag,
+                0, seg_idx, n_seg, mate_regs, index=mi,
+                comment=rec.comment) + "\n")
+        elif r is not None:
+            out.write(samio.paf_record(
+                rec.name, rec.l_seq, r, names, lens, 0,
+                bool(mo.flag & cfg.MM_F_OUT_CG), mo.flag, rec.comment) + "\n")
+        elif mo.flag & cfg.MM_F_PAF_NO_HIT:
+            out.write(samio.paf_record(rec.name, rec.l_seq, None, names, lens,
+                                       0, False, mo.flag, rec.comment) + "\n")
 
     def emit_frags(frags, results):
         """Per-fragment output with mate fields (map.c:1208-1280)."""
@@ -261,20 +425,22 @@ def run_lr_sam(mi, mo, queries: list, out_path: str | None, n_threads: int,
                 n_mapped += 1
                 regs = frag_res[j]
                 mate = frag_res[(j + 1) % n] if n > 1 else None
-                lines = [samio.sam_record(
-                    rec.name, rec.seq, rec.qual, r, regs, names, mo.flag, 0,
-                    j, n, mate, index=mi, comment=rec.comment)
-                    for r in regs or []
-                    if not ((mo.flag & cfg.MM_F_NO_PRINT_2ND) and r.id != r.parent)]
-                if not regs:
-                    lines = [samio.sam_record(
-                        rec.name, rec.seq, rec.qual, None, [], names, mo.flag,
-                        0, j, n, mate, index=mi, comment=rec.comment)]
-                bout.write("".join(l + "\n" for l in lines).encode())
+                if regs:
+                    for r in regs:
+                        if (mo.flag & cfg.MM_F_NO_PRINT_2ND) and r.id != r.parent:
+                            continue
+                        write(rec, r, regs, j, n, mate)
+                else:
+                    write(rec, None, [], j, n, mate)
 
     query_groups = [queries] if len(queries) == 2 else [[q] for q in queries]
     for group in query_groups:
         frag_batches = list(read_frag_batches(group, mo.mini_batch_size))
+        if mo.split_len > 0:  # --split-reads (ultralong ONT chunking)
+            frag_batches = [
+                [[c] for frag in fb for rec in frag
+                 for c in split_ultralong([rec], mo.split_len)]
+                for fb in frag_batches]
         # pe_ori-revcomp paired segments before mapping, flip coordinates
         # back after (worker_for, map.c:1057-1090)
         flat_batches, flips = [], []
@@ -295,8 +461,9 @@ def run_lr_sam(mi, mo, queries: list, out_path: str | None, n_threads: int,
         for fb, flat, flip, results in zip(frag_batches, flat_batches, flips,
                                            mapper.map_stream(flat_batches)):
             if mo.pe_ori >= 0 and (mo.flag & cfg.MM_F_CIGAR):
-                # mm_pair on mapping-orientation regs; frag_gap bound as in
-                # gdiet_tpu/runtime.py:636-653
+                # mm_pair on mapping-orientation regs; the reference never
+                # computes frag_gap, so pairs are bounded by the frag-mode
+                # fragment budget (gdiet_tpu/runtime.py:636-653)
                 gap = (mo.max_gap_ref if mo.max_gap_ref >= 0
                        else max(mo.max_gap, mo.max_frag_len or 800))
                 kk = 0
@@ -313,59 +480,77 @@ def run_lr_sam(mi, mo, queries: list, out_path: str | None, n_threads: int,
                     r.qs, r.qe = qlen - r.qe, qlen - r.qs
                     r.rev = 0 if r.rev else 1
             emit_frags(fb, results)
-    _close_and_report(bout, n_mapped, verbose, cli_line, t0)
+        _log(verbose, t0, f"mapped {n_mapped} sequences")
+    if out is not sys.stdout:
+        out.close()
+    _report(verbose, cli_line, t0)
     return 0
+
+
+# flags that only the per-record writer honours
+GENERIC_FLAGS = (cfg.MM_F_COPY_COMMENT | cfg.MM_F_OUT_MD | cfg.MM_F_OUT_CS
+                 | cfg.MM_F_OUT_CS_LONG | cfg.MM_F_OUT_CG)
+
+
+def route(mo, variant: str, queries: list, max_read_len: int | None = None) -> str:
+    """Which writer a run takes, under gdiet_tpu/runtime.py:493-514's
+    conditions: "sr_se" (``run_sr_sam``), "sr_pe" (``run_sr_pe_sam``) or
+    "generic" (``run_generic``)."""
+    fast = (variant == "sr" and bool(mo.flag & cfg.MM_F_OUT_SAM)
+            and mo.split_len <= 0 and not (mo.flag & GENERIC_FLAGS)
+            and not debug.enabled() and mo.sdust_thres <= 0
+            and max_read_len is None)
+    if fast and len(queries) == 1:
+        return "sr_se"
+    if (fast and len(queries) == 2 and not os.environ.get("GDIET_NO_PE_FAST")
+            and mo.pe_ori >= 0 and (mo.flag & cfg.MM_F_CIGAR)
+            and mo.mesh_shape is None):
+        return "sr_pe"
+    return "generic"
 
 
 def run_mapping(io, mo, variant: str, target: str, queries: list,
                 device, fnw: str | None = None, out_path: str | None = None,
                 n_threads: int = 3, verbose: int = 3,
-                cli_line: str = "gdiet") -> int:
-    """Build or load the index on ``device``, then map. Short reads
-    (single-end and paired-end) and long reads to SAM are ported;
-    everything else raises."""
+                cli_line: str = "gdiet", max_read_len: int | None = None) -> int:
+    """Build or load the index on ``device``, then map through the writer
+    ``route`` picks (``--split-prefix`` first, as gdiet_tpu/runtime.py:432-674
+    does)."""
     t0 = time.perf_counter()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("[ERROR] --device cuda: no CUDA device is available")
-    unsupported = []
-    if queries and not (mo.flag & cfg.MM_F_OUT_SAM):
-        unsupported.append("PAF output (use -a)")
-    if len(queries) > 2 and variant == "sr":
-        unsupported.append("more than two query files")
-    if variant == "sr" and len(queries) == 2 and (
-            os.environ.get("GDIET_NO_PE_FAST") or mo.pe_ori < 0
-            or not (mo.flag & cfg.MM_F_CIGAR) or debug.enabled()
-            or mo.sdust_thres > 0):
-        # gdiet_tpu/runtime.py:503-513 sends these to its generic
-        # per-record paired-end writer
-        unsupported.append("the generic paired-end path (GDIET_NO_PE_FAST, "
-                           "pe_ori < 0, no CIGAR, --print-seeds or -T)")
-    if mo.split_prefix or mo.split_len > 0:
-        unsupported.append("--split-prefix / --split-reads")
-    if mo.mesh_shape is not None:
-        unsupported.append("--mesh")
-    if mo.flag & (cfg.MM_F_COPY_COMMENT | cfg.MM_F_OUT_MD | cfg.MM_F_OUT_CS
-                  | cfg.MM_F_OUT_CS_LONG | cfg.MM_F_OUT_CG):
-        unsupported.append("-y/--MD/--cs/-c")
-    if unsupported:
+    if mo.mesh_shape is not None or os.environ.get("GDIET_COORDINATOR"):
         raise NotImplementedError(
-            "not ported to gdiet_tpu_torch yet (see ROADMAP.md): "
-            + ", ".join(unsupported))
+            "multi-device mapping (--mesh, GDIET_COORDINATOR) is not ported to "
+            "gdiet_tpu_torch yet (see ROADMAP.md)")
+
+    # multi-part split mapping (-I small + --split-prefix)
+    if mo.split_prefix and not TorchIndex.is_index(target):
+        total = sum(r.l_seq for r in read_fastx(target))
+        if total > io.batch_size:
+            out = _out_stream(out_path)
+            try:
+                return run_split_mapping(io, mo, variant, target, queries, out,
+                                         verbose, cli_line, max_read_len, t0,
+                                         device)
+            finally:
+                if out is not sys.stdout:
+                    out.close()
+
     mi = load_or_build_index(target, io, device, verbose, t0)
     if fnw:
         mi.save(fnw)
         _log(verbose, t0, f"dumped the index to {fnw}")
-    if not queries:
-        return 0
-    if variant != "sr":
-        return run_lr_sam(mi, mo, queries, out_path, n_threads, verbose,
-                          cli_line, t0, device)
-    # GDIET_DP_FOLD=1 takes the folded DP, as it does in gdiet_tpu
-    dp_fold = os.environ.get("GDIET_DP_FOLD", "0") == "1"
-    if len(queries) == 2:
+        if not queries:
+            return 0
+    path = route(mo, variant, queries, max_read_len)
+    if path == "sr_se":
+        return run_sr_sam(mi, mo, queries[0], out_path, n_threads, verbose,
+                          cli_line, t0, device, dp_fold=dp_fold_env())
+    if path == "sr_pe":
         return run_sr_pe_sam(mi, mo, queries[0], queries[1], out_path,
                              n_threads, verbose, cli_line, t0, device,
-                             dp_fold=dp_fold)
-    return run_sr_sam(mi, mo, queries[0], out_path, n_threads, verbose,
-                      cli_line, t0, device, dp_fold=dp_fold)
+                             dp_fold=dp_fold_env())
+    return run_generic(mi, mo, variant, queries, out_path, n_threads, verbose,
+                       cli_line, t0, device, max_read_len)

@@ -1,8 +1,12 @@
-"""SAM comparisons shared by the port's tests and ``chip_smoke.py``."""
+"""Helpers shared by the port's tests and ``chip_smoke.py``: SAM
+comparisons, and the CPU thread count of the tests."""
 
 from __future__ import annotations
 
+import contextlib
 import pathlib
+
+import torch
 
 PE_BITS = 0x1 | 0x2 | 0x8 | 0x20 | 0x40 | 0x80  # FLAG bits that pairing sets
 
@@ -32,3 +36,17 @@ def r1_vs_single_end(pe_records: list, golden_records: list) -> tuple[int, list]
             bad.append(g[0])
         n_checked += 1
     return n_checked, bad
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op CPU thread pool at ``n`` threads for the body. The
+    plain versions issue many small ops; under pytest-xdist every worker
+    has its own pool, and pools as wide as the host oversubscribe it (the
+    whole suite ran ~6x slower with 6 workers on an 8-core host)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)

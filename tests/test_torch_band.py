@@ -37,6 +37,14 @@ import torch
 
 from gdiet_tpu_torch.ops import dp, dp_band, extd2
 from gdiet_tpu_torch.pipeline import device_step
+from gdiet_tpu_torch.testing import torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
 
 PARAMS = (1, 4, 6, 2, 26, 1)  # the map-hifi preset's scoring
 

@@ -16,6 +16,14 @@ import pytest
 import torch
 
 from gdiet_tpu_torch.ops import dp, dp_fold, extd2
+from gdiet_tpu_torch.testing import torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
 
 LMAX = 96
 

@@ -25,6 +25,14 @@ import torch
 from gdiet_tpu_torch.ops import dp, dp_band, dp_fold, extd2
 from gdiet_tpu_torch.pipeline import device_step
 from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
+from gdiet_tpu_torch.testing import torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
 
 PARAMS = (2, 8, 12, 2, 24, 1)
 

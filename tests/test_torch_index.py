@@ -15,6 +15,14 @@ from gdiet_tpu_torch import u64
 from gdiet_tpu_torch.index import TorchIndex, build_index
 from gdiet_tpu_torch.index.build import pack_ref_codes
 from gdiet_tpu_torch.pipeline.device_step import StepConfig, cuckoo_lookup
+from gdiet_tpu_torch.testing import torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
 
 FIELDS = ("k", "w", "pattern", "names", "flag", "lengths", "seq_offsets",
           "codes", "keys", "starts", "positions")

@@ -19,7 +19,14 @@ import pytest
 from gdiet_tpu_torch import cli
 from gdiet_tpu_torch.index.build import TorchIndex
 from gdiet_tpu_torch.ops import dp_band, extd2
-from gdiet_tpu_torch.testing import sam_body
+from gdiet_tpu_torch.testing import sam_body, torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
 
 HIFI = dict(pattern="10", k=19, w=19, max_seeds=0.2, bw=200, vt_dis=650,
             vt_nb_loc=5, vt_df1=0.0106, vt_df2=0.2, min_dp_max=100,

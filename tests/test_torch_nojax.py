@@ -2,8 +2,9 @@
 
 An AST walk over every module of ``gdiet_tpu_torch`` and over
 ``chip_smoke.py`` finds no import of ``jax`` or ``gdiet_tpu`` (comments and
-docstrings may name the JAX files). The single-end, paired-end (folded DP)
-and long-read CLIs then run in a subprocess with ``sys.modules["jax"]``,
+docstrings may name the JAX files). The single-end, paired-end (folded DP),
+generic (``--MD --cs`` SAM, ``-c`` PAF) and long-read CLIs then run in a
+subprocess with ``sys.modules["jax"]``,
 ``["jaxlib"]`` and ``["gdiet_tpu"]`` set to None before anything else, so
 any such import on their path would fail, and each writes the same SAM as
 the port's run in this process, where both packages are loaded.
@@ -19,7 +20,14 @@ import gdiet_tpu  # noqa: F401  (the in-process runs have both packages loaded)
 import pytest
 
 from gdiet_tpu_torch import cli
-from gdiet_tpu_torch.testing import r1_vs_single_end, sam_body
+from gdiet_tpu_torch.testing import r1_vs_single_end, sam_body, torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -62,13 +70,15 @@ def _imports(path: pathlib.Path) -> list:
 
 def test_port_imports_neither_jax_nor_gdiet_tpu():
     files = sorted((ROOT / "gdiet_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 30
+    assert len(files) > 30 and ROOT / "gdiet_tpu_torch" / "api.py" in files
     bad = [(str(f.relative_to(ROOT)), n) for f in files for n in _imports(f)
            if n.split(".")[0] in ("jax", "jaxlib", "gdiet_tpu")]
     assert not bad, bad
 
 
 def _run_without_jax(args, env=None):
+    # one OpenMP thread, as the in-process runs (see testing.torch_threads)
+    env = {**(env or os.environ), "OMP_NUM_THREADS": "1"}
     res = subprocess.run([sys.executable, "-c", SCRIPT, *args], cwd=ROOT,
                          capture_output=True, text=True, timeout=600, env=env)
     assert res.returncode == 0, res.stderr[-4000:]
@@ -110,6 +120,17 @@ def test_pe_cli_without_jax(data_dir, tmp_path):
     assert not bad, bad[:5]
     assert n_checked > 200
     assert sam_body(out) == _run_here([*ARGS, *inputs], tmp_path / "here.sam", fold)
+
+
+@pytest.mark.parametrize("opts,suffix", [(["-a", "--MD", "--cs"], "sam"), (["-c"], "paf")])
+def test_generic_cli_without_jax(data_dir, tmp_path, opts, suffix):
+    """The generic per-record writer: SAM with MD/cs tags, and PAF."""
+    args = [*opts, *[a for a in ARGS if a != "-a"]]
+    out = tmp_path / f"out.{suffix}"
+    inputs = [str(data_dir / "ref.fa"), str(data_dir / "reads.fq")]
+    _run_without_jax([*args, "-o", str(out), *inputs])
+    mine = sam_body(out)
+    assert len(mine) >= 40 and mine == _run_here([*args, *inputs], tmp_path / "here")
 
 
 @pytest.fixture

@@ -18,7 +18,14 @@ from gdiet_tpu.cli import main as jax_main
 from gdiet_tpu_torch import runtime
 from gdiet_tpu_torch.cli import main as port_main
 from gdiet_tpu_torch.ops import dp_fold
-from gdiet_tpu_torch.testing import sam_body as _body
+from gdiet_tpu_torch.testing import sam_body as _body, torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
 
 DATA = pathlib.Path(__file__).parent / "data"
 ARGS = ["-a", "-t", "1", "-x", "sr", "-Z", "10", "-W", "2", "-k", "21",

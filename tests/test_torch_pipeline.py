@@ -13,6 +13,13 @@ from gdiet_tpu_torch.io.fastx import read_fastx
 from gdiet_tpu_torch.index import build_index
 from gdiet_tpu_torch.ops import dp
 from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
+from gdiet_tpu_torch.testing import torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
 
 
 def _options(pattern):

@@ -10,6 +10,13 @@ from gdiet_tpu import pattern as pat
 from gdiet_tpu.ops import sketch as jsk
 from gdiet_tpu_torch import u64
 from gdiet_tpu_torch.ops import sketch as tsk
+from gdiet_tpu_torch.testing import torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
 
 
 def _batch(seed, B=24, D=300):

@@ -22,6 +22,13 @@ from gdiet_tpu.pipeline.device_step import FusedMapper, fused_map_step
 from gdiet_tpu_torch import u64
 from gdiet_tpu_torch.index import TorchIndex
 from gdiet_tpu_torch.pipeline import device_step as tds
+from gdiet_tpu_torch.testing import torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
 
 
 def _fixture_problem(data_dir):
