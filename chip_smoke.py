@@ -6,8 +6,8 @@
 Needs one CUDA GPU, the CUDA toolkit (nvcc) and a C compiler; imports no
 JAX. Phases, each printing one line:
 
-1. device/build: ``nvidia-smi`` name and power limit; the five CUDA kernels
-   of the SR, PE and LR paths built from the checkout's sources, one
+1. device/build: ``nvidia-smi`` name and power limit; the six CUDA kernel
+   sources of the SR, PE and LR paths built from the checkout, one
    ``nvcc`` per source started together (seconds and ``ptxas -v`` output
    per kernel).
 2. kernel: the CUDA ``extd2`` DP kernel (one warp per row) against its
@@ -31,14 +31,21 @@ JAX. Phases, each printing one line:
    With ``--prev DIR`` (earlier sources of ``extd2.cu`` and
    ``extd2_fold.cu``): both kernels timed in turns against the earlier
    sources on the same inputs, outputs equal (phase ``prev``).
-4. kernel_vote: the vote kernel ``vote_scan`` (one thread per read, the K
-   slots in shared memory) against the plain loop on the hit streams the
-   step hands it: one SE batch of the main phase (10,016 reads, M = 130,
-   K = 2) and one generic batch (65,536 reads at the mapper's default
-   budgets, A = 2,048, M = 4,098) at K = 2 and K = 20; all 11 outputs
-   exact. Times as in phase 2 (the plain loop one run), the bound (B*M*13
-   bytes of streams over HBM bandwidth), the serial floor (M columns x 24
-   cycles), ptxas registers and spills.
+4. kernel_vote: the vote kernel ``vote_scan`` (one thread per read, the
+   strand halves read in place in column tiles staged through shared
+   memory, the K slots in shared memory) against the plain loop on the
+   concatenated hit streams the step hands it: one SE batch of the main
+   phase (10,016 reads, M = 130, K = 2) and one generic batch (65,536
+   reads at the mapper's default budgets, A = 2,048, M = 4,098) at K = 2
+   and K = 20; all 11 outputs exact, and the streams valid-first (the
+   precondition of ``ops/vote.py``). Times as in phase 2 (the plain loop one
+   run), the time of building the concatenated stream, the bound (the
+   valid flags up to each strand's end and 12 bytes per valid column, over
+   HBM bandwidth; the whole stream's B*M*13 bytes beside it), the serial
+   floor (the longest row's walked columns x 24 cycles), ptxas registers
+   and spills. With ``--prev DIR`` holding an earlier ``vote_scan.cu`` (one
+   thread per row over the concatenated stream): that source timed in
+   turns against this one, outputs equal.
 5. golden: ``tests/data`` fixtures (``golden.sam`` and ``golden2_*.sam`` for
    patterns 10, 1110, 11 and 110) mapped on the card through
    ``ShortReadMapper.map_stream_sam`` and through ``map_batch`` (regs
@@ -116,7 +123,22 @@ JAX. Phases, each printing one line:
    SAM equal to the scalar oracle's, band and backtrack kernel launches > 0
    and no plain banded DP or plain backtrack call. One batch's per-phase
    times; one chunk's captured DP inputs (the smallest bucket) through the
-   kernels and the plain versions once more, exact.
+   kernels and the plain versions once more, exact. The LR vote kernel
+   launched (twice a batch) and neither the plain LR vote loops nor
+   ``lr_step._stream_columns`` called.
+14. kernel_vote_lr: ``csrc/vote_lr.cu``'s round 1 (``vote_lr``) and both
+   round-2 windows (``vote2_pair``) against the plain LR loops on the vote
+   calls captured from one HiFi batch (256 reads, M = 1,026, K = 5): every
+   output exact; times, bounds and serial floors as in phase 4; ptxas
+   registers and spills.
+15. ont: the ONT path at full size, its first run on the card: bench.py's
+   ``gen_ont_reads`` recipe (30 kb reads at 3% substitutions, 1%
+   insertions, 1% deletions) and ``ont_stats`` options and budgets, 1
+   warm-up + 2 timed batches of 16. Checks: >= 90% of reads mapped; the
+   DP, backtrack and vote kernels launched and no plain version called in
+   the timed window; one batch's captured vote stream (M = 8,194) through
+   ``vote_lr.cu`` and the plain loops, exact. Reads/s, fallbacks and host
+   DP segments (``LongReadMapper.stats``), one batch's per-phase times.
 
 Then a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before the last line is printed. Without a
@@ -485,67 +507,226 @@ def phase_kernel_fold(device, N: int, L: int, qlen: int, card: str,
     return res
 
 
-# integer operations per column of one row of the vote (the body of
+# integer operations per valid column of one row of the vote (the body of
 # csrc/vote_scan.cu: the unsigned distance test, the run tests and the run
 # update), and the cycles of its dependent chain per column (about six
-# dependent integer operations at ~4 cycles each), for the serial floor
+# dependent integer operations at ~4 cycles each), for the serial floor;
+# the long-read round 1 adds the raw target and its unsigned min and max
 VOTE_OPS_PER_COLUMN = 12
 VOTE_CYCLES_PER_COLUMN = 24
+VOTE_LR_OPS_PER_COLUMN = 20
+VOTE_LR_CYCLES_PER_COLUMN = 36
+
+
+def capture_calls(owner, names, run) -> dict:
+    """{name: [(args, kwargs), ...]} of every call of ``owner.<name>`` for
+    each name while ``run()`` runs (the calls go through)."""
+    seen = {n: [] for n in names}
+    orig = {n: getattr(owner, n) for n in names}
+
+    def spy(name):
+        def call(*args, **kw):
+            seen[name].append((args, kw))
+            return orig[name](*args, **kw)
+        return call
+
+    for n in names:
+        setattr(owner, n, spy(n))
+    try:
+        run()
+    finally:
+        for n in names:
+            setattr(owner, n, orig[n])
+    return seen
 
 
 def capture_vote(mapper, codes, lens) -> tuple:
-    """The arguments one fused step hands to ``ops/vote.py::vote_scan``."""
+    """The (args, kwargs) one fused step hands to ``ops/vote.py::vote_scan``:
+    the six halves, vt_distance, vt_threshold, vt_rec_threshold, K."""
     from gdiet_tpu_torch.ops import vote
 
-    seen = []
-    launch = vote.vote_scan
-
-    def spy(*args):
-        seen.append(args)
-        return launch(*args)
-
-    vote.vote_scan = spy
-    try:
-        mapper.fused(codes, lens)
-    finally:
-        vote.vote_scan = launch
+    seen = capture_calls(vote, ["vote_scan"], lambda: mapper.fused(codes, lens))["vote_scan"]
     check(len(seen) == 1, f"the step made {len(seen)} vote calls")
     return seen[0]
 
 
-def vote_vs_plain(args, K: int, cuda: bool, what: str) -> dict:
-    """The vote kernel against the plain loop on one captured stream with K
-    slots: all 11 outputs exact; times as kernel_vs_plain's (the plain loop
-    one run); the bound (B*M*13 bytes of streams plus the per-read inputs
-    and the outputs over HBM bandwidth, or the column operations over the
-    int32 rate) and the serial floor (M columns x the cycles of one
-    column's dependent chain)."""
+def valid_first(ok) -> bool:
+    """Each row's valid columns come first (the precondition of ops/vote.py)."""
+    return not bool((ok[:, 1:] & ~ok[:, :-1]).any())
+
+
+def stream_bytes(fok, rok) -> dict:
+    """What any vote must read of a valid-first stream: each row's valid
+    flags up to its strands' ends (one invalid flag after the last valid
+    one in each half, unless the half is full) and 12 bytes (key and
+    position) per valid column; and the longest row's walked columns (its
+    valid columns and one invalid column per half), the serial chain."""
+    A = fok.shape[1]
+    nf, nr = fok.sum(1), rok.sum(1)
+    flags = int((nf + 1).clamp(max=A).sum() + (nr + 1).clamp(max=A).sum())
+    valid = int(nf.sum() + nr.sum())
+    return {"flag_bytes": flags, "valid_columns": valid, "stream_bytes": flags + 12 * valid,
+            "longest_row_columns": int((nf + nr).max()) + 2 if len(nf) else 0}
+
+
+def rounds_ms(fn) -> float:
+    """Median over KERNEL_ROUNDS rounds of KERNEL_REPS calls, CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(KERNEL_ROUNDS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(KERNEL_REPS):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1) / KERNEL_REPS)
+    return float(np.median(ms))
+
+
+def device_ms(fn, kernel: str):
+    """The device time of one launch of the kernel whose name contains
+    ``kernel``, from a torch.profiler trace of KERNEL_REPS calls of ``fn``
+    (the kernel's own time, whatever the host's enqueue rate); None where
+    the trace shows no device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without the kernel
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(KERNEL_REPS):
+                fn()
+            torch.cuda.synchronize()
+        us = [getattr(ev, "device_time", 0) or getattr(ev, "cuda_time", 0)
+              for ev in prof.events() if kernel in ev.name]
+        if us and all(us):
+            return float(np.mean(us)) / 1e3
+    return None
+
+
+def host_us(fn) -> float:
+    """Host microseconds per call of ``fn`` (enqueue only), over
+    KERNEL_REPS calls."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(KERNEL_REPS):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / KERNEL_REPS
+    torch.cuda.synchronize()
+    return us
+
+
+def blocks_per_sm(registers: int, shared_bytes: int, threads: int = 32) -> dict:
+    """Resident blocks per SM of a launch shape: by registers (65,536 per SM,
+    allocated per warp in units of 256), by shared memory (233,472 bytes
+    per SM, 1 KB reserved per block) and the limit of 32 blocks."""
+    warps = -(-threads // 32)
+    by_regs = 65536 // (warps * -(-registers * 32 // 256) * 256)
+    by_smem = 233472 // (shared_bytes + 1024)
+    return {"by_registers": by_regs, "by_shared_memory": by_smem,
+            "blocks_per_sm": min(32, by_regs, by_smem)}
+
+
+def prev_vote_scan(lib, keys, qpos, valid, strand, dist, thr, rec, K: int) -> dict:
+    """The earlier vote kernel of ``--prev`` (its C entry point reads the
+    concatenated stream)."""
+    import torch
+
+    from gdiet_tpu_torch.ops import extd2, vote
+
+    B, M = keys.shape
+    out = {n: torch.empty((B, K) if n.startswith("k_") else (B,),
+                          dtype=torch.int64 if n.endswith("target") else torch.int32,
+                          device=keys.device) for n in vote.OUTPUTS}
+    rc = lib.gdiet_vote_scan(keys.data_ptr(), qpos.data_ptr(), valid.data_ptr(),
+                             strand.data_ptr(), dist.data_ptr(), thr.data_ptr(), rec.data_ptr(),
+                             *(out[n].data_ptr() for n in vote.OUTPUTS), B, M, K,
+                             extd2._stream(keys.device))
+    check(rc == 0, f"the earlier vote_scan failed: CUDA error {rc}")
+    return out
+
+
+def vote_vs_plain(call, K: int, cuda: bool, what: str, prev=None) -> dict:
+    """The vote kernel (halves in place) against the plain
+    loop on their concatenation, on one captured stream with K slots: all
+    11 outputs exact; times as kernel_vs_plain's (the plain loop one run);
+    the time of building the concatenated stream, which the step paid
+    before this kernel read the halves in place; the bound (stream_bytes
+    plus the per-read inputs and the outputs over HBM bandwidth, or the
+    valid columns' operations over the int32 rate), the whole-stream bound
+    it (B*M*13 stream bytes) once beside it, and the serial floor (the
+    longest row's walked columns x the cycles of one column's chain). With
+    ``prev`` (the earlier library): that source on the concatenated stream, in
+    turns with this one (earlier, current, current, earlier), outputs
+    equal."""
     from gdiet_tpu_torch.ops import vote
     from gdiet_tpu_torch.pipeline.device_step import vote_scan as plain
 
-    keys, qpos, valid, strand, dist, thr, rec, _ = args
-    a = (keys, qpos, valid, strand, dist, thr, rec, K)
-    got, ref, times = kernel_vs_plain(lambda: vote.vote_scan(*a), lambda: plain(*a), cuda,
-                                      plain_runs=1)
+    args, _ = call
+    halves, per_row = args[:6], args[6:9]
+    fok, rok = halves[2], halves[5]
+    check(valid_first(fok) and valid_first(rok),
+          f"the captured stream of {what} is not valid-first")
+    concat = vote.concat_stream(*halves)
+    got, ref, times = kernel_vs_plain(
+        lambda: vote.vote_scan(*halves, *per_row, K),
+        lambda: plain(*concat, *per_row, K), cuda, plain_runs=1)
     err = check_equal([got[n] for n in vote.OUTPUTS], [ref[n] for n in vote.OUTPUTS],
                       vote.OUTPUTS, f"vote_scan on {what} (K {K})")
-    B, M = keys.shape
-    n_bytes = B * M * 13 + M * 4 + B * 16 + B * K * 24 + B * 32
+    B, A = fok.shape
+    M = 2 * (A + 1)
+    sb = stream_bytes(fok, rok)
+    io_bytes = B * 16 + B * K * 24 + B * 28  # per-read inputs; slots; the rest
     res = {"what": what, "B": B, "M": M, "K": K, **times, "max_abs_err": err,
-           **bound(n_bytes, float(B * M * VOTE_OPS_PER_COLUMN)),
-           "serial_floor_ms": M * VOTE_CYCLES_PER_COLUMN / SM_CLOCK_HZ * 1e3,
-           "valid_hits": int(valid.sum()), "rows_full": int((ref["out_len"] == K).sum()),
+           **bound(sb["stream_bytes"] + io_bytes, float(sb["valid_columns"] * VOTE_OPS_PER_COLUMN)),
+           **sb, "bound_ms_whole_stream": (B * M * 13 + M * 4 + io_bytes) / HBM_BYTES_PER_S * 1e3,
+           "serial_floor_ms": sb["longest_row_columns"] * VOTE_CYCLES_PER_COLUMN / SM_CLOCK_HZ * 1e3,
+           "rows_full": int((ref["out_len"] == K).sum()),
            "rows_recovery": int(((ref["out_len"] == 0) & (ref["r_score"] > 0)).sum())}
     res["share_of_bound"] = res["bound_ms"] / times["kernel_ms"]
+    if cuda:
+        res["concat_ms"] = rounds_ms(lambda: vote.concat_stream(*halves))
+        res["device_ms"] = device_ms(lambda: vote.vote_scan(*halves, *per_row, K), "vote_scan_kernel")
+        res["wrapper_host_us"] = host_us(lambda: vote.vote_scan(*halves, *per_row, K))
+        if res["device_ms"]:
+            res["device_share_of_bound"] = res["bound_ms"] / res["device_ms"]
+    if prev is not None:
+        old = prev_vote_scan(prev, *concat, *per_row, K)
+        err_prev = check_equal([old[n] for n in vote.OUTPUTS], [got[n] for n in vote.OUTPUTS],
+                               vote.OUTPUTS, f"the earlier vote_scan on {what} (K {K})")
+        def earlier():
+            return prev_vote_scan(prev, *concat, *per_row, K)
+
+        def current():
+            return vote.vote_scan(*halves, *per_row, K)
+
+        turns = [rounds_ms(f) for f in (earlier, current, current, earlier)]
+        dev = [device_ms(f, "vote_scan_kernel") for f in (earlier, current, current, earlier)]
+        old_ms, new_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        res["earlier_source"] = {"earlier_ms": old_ms, "current_ms": new_ms,
+                                 "speedup": old_ms / new_ms, "turns_ms": turns,
+                                 "earlier_with_concat_ms": old_ms + res["concat_ms"],
+                                 "device_turns_ms": dev, "max_abs_err": err_prev}
+        if None not in dev:
+            old_d, new_d = (dev[0] + dev[3]) / 2, (dev[1] + dev[2]) / 2
+            res["earlier_source"].update(earlier_device_ms=old_d, current_device_ms=new_d,
+                                         device_speedup=old_d / new_d)
     return res
 
 
 def phase_kernel_vote(device, card: str, n_main: int = BENCH_B,
-                      n_generic: int = GENERIC_READS, built=None) -> dict:
+                      n_generic: int = GENERIC_READS, built=None, prev=None) -> dict:
     """The vote kernel against the plain loop on captured hit streams: one
     SE batch of the main phase (bench budgets, M = 130, K = 2) and one
     generic batch (the mapper's default budgets, A = 2048, M = 4,098) at
-    K = 2 and K = 20. With ``built``: ptxas registers and spills."""
+    K = 2 and K = 20. With ``built``: ptxas registers and spills. With
+    ``prev`` (the earlier vote_scan library): that source timed in turns."""
     import torch
 
     from gdiet_tpu_torch.index import build_index
@@ -559,34 +740,34 @@ def phase_kernel_vote(device, card: str, n_main: int = BENCH_B,
     main = ShortReadMapper(mi, mo, max_read_len=160, seed_budget=32, shift_seed_budget=16,
                            hit_budget=64, dp_frac=0.3125, device=device)
     codes, lens = main.native.encode_batch([r.seq for r in reads[:n_main]], 160)
-    args = capture_vote(main, codes, lens)
-    runs.append(vote_vs_plain(args, 2, cuda, "the main phase's batch"))
-    del args
+    call = capture_vote(main, codes, lens)
+    runs.append(vote_vs_plain(call, 2, cuda, "the main phase's batch", prev))
+    del call
     generic = ShortReadMapper(mi, mo, device=device)
     codes, lens = generic.native.encode_batch([r.seq for r in reads[:n_generic]], generic.Lmax)
-    args = capture_vote(generic, codes, lens)
-    check(args[0].shape[1] == 2 * (generic.fused.cfg.A + 1), "the generic stream's width")
+    call = capture_vote(generic, codes, lens)
+    check(call[0][0].shape[1] == generic.fused.cfg.A, "the generic stream's width")
     for K in (2, 20):
-        runs.append(vote_vs_plain(args, K, cuda, "a generic batch"))
-    del args
+        runs.append(vote_vs_plain(call, K, cuda, "a generic batch", prev))
+    del call
     out = {"runs": runs, "card": card}
     if built:
         out["ptxas"] = ptxas_info(built["vote_scan"][2])
+        regs = next(iter(out["ptxas"].values()))["registers"]
+        # the launch shape: 32 threads, the tile (3,456 bytes) and 12-byte slots
+        out["occupancy"] = {f"K={K}": blocks_per_sm(regs, 3456 + K * 32 * 12) for K in (2, 20)}
     say("kernel_vote", **out)
     return out
 
 
-def phase_prev(prev: pathlib.Path, card: str) -> dict:
-    """``--prev DIR``: the earlier sources of extd2.cu and extd2_fold.cu in
-    DIR (same C entry points), built beside the checkout's, each one nvcc,
-    started together. Each kernel is timed in turns against its earlier
-    source on the kernel phases' inputs (earlier, current, current,
-    earlier; each a median of KERNEL_ROUNDS rounds of KERNEL_REPS launches,
-    CUDA events); the two sources' outputs must be equal (exact)."""
+def build_prev(prev: pathlib.Path) -> dict:
+    """``--prev DIR``: the earlier sources in DIR among extd2.cu,
+    extd2_fold.cu (same C entry points as the checkout's) and vote_scan.cu
+    (the earlier entry point, the concatenated stream), each built by its own
+    nvcc, all started together, beside the checkout's. Returns {name:
+    (library, ptxas log, path)}."""
     import ctypes
     import hashlib
-
-    import torch
 
     from gdiet_tpu_torch.ops import extd2
 
@@ -594,39 +775,45 @@ def phase_prev(prev: pathlib.Path, card: str) -> dict:
                                .hexdigest()[:12])
     build.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("extd2", "extd2_fold"):
+    for name in ("extd2", "extd2_fold", "vote_scan"):
+        if not (prev / f"{name}.cu").exists():
+            continue
         so = build / f"{name}.so"
         cmd = [extd2._nvcc(), *extd2.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so),
                str(prev / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), so)
-    libs, logs = {}, {}
+    out = {}
+    P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     for name, (proc, so) in procs.items():
-        logs[name], _ = proc.communicate(timeout=600)
-        check(proc.returncode == 0, f"nvcc failed on the earlier {name}.cu:\n{logs[name]}")
-        lib = ctypes.CDLL(str(so))
-        entry, argtypes = extd2.ENTRIES[name]
-        getattr(lib, entry).restype = ctypes.c_int
-        getattr(lib, entry).argtypes = argtypes
-        libs[name] = lib
+        log, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"nvcc failed on the earlier {name}.cu:\n{log}")
+        if name == "vote_scan":  # the earlier entry point
+            lib = ctypes.CDLL(str(so))
+            lib.gdiet_vote_scan.restype = ctypes.c_int
+            lib.gdiet_vote_scan.argtypes = [P] * 18 + [I64] * 2 + [I] + [P]
+        else:
+            lib = extd2.bind(so, name)
+        out[name] = (lib, log, so)
+    return out
 
-    def rounds_ms(fn):
-        torch.cuda.synchronize()
-        ms = []
-        for _ in range(KERNEL_ROUNDS):
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            for _ in range(KERNEL_REPS):
-                fn()
-            e1.record()
-            torch.cuda.synchronize()
-            ms.append(e0.elapsed_time(e1) / KERNEL_REPS)
-        return float(np.median(ms))
+
+def phase_prev(libs: dict, card: str, source: str) -> dict:
+    """The earlier extd2.cu and extd2_fold.cu (``build_prev``), each timed
+    in turns against the checkout's source on the kernel phases' inputs
+    (earlier, current, current, earlier; each a median of KERNEL_ROUNDS
+    rounds of KERNEL_REPS launches, CUDA events); the two sources' outputs
+    must be equal (exact)."""
+    import torch
+
+    from gdiet_tpu_torch.ops import extd2
 
     out = {}
     for tag, name, N, fold in (("extd2", "extd2", KERNEL_SHAPE["N"], False),
                                ("extd2_fold", "extd2_fold", KERNEL_SHAPE["N"], True),
                                ("extd2_fold_pe", "extd2_fold", pe_dp_rows(PE_PAIRS), True)):
+        if name not in libs:
+            continue
         Q, T, lens, band = dp_pairs(N, KERNEL_SHAPE["L"], KERNEL_SHAPE["qlen"])
         q, t, ln, bd = (torch.from_numpy(a).cuda() for a in (Q, T, lens, band))
         L = KERNEL_SHAPE["L"]
@@ -637,13 +824,13 @@ def phase_prev(prev: pathlib.Path, card: str) -> dict:
         cur = extd2._library(name)
         for _ in range(3):
             new_out = fn()
-        extd2._libs[name] = libs[name]
+        extd2._libs[name] = libs[name][0]
         try:
             for _ in range(3):
                 old_out = fn()
             err = check_equal(old_out, new_out, DP_OUTPUTS, f"{tag}: earlier and current sources")
             times = []
-            for lib in (libs[name], cur, cur, libs[name]):
+            for lib in (libs[name][0], cur, cur, libs[name][0]):
                 extd2._libs[name] = lib
                 times.append(rounds_ms(fn))
         finally:
@@ -651,9 +838,10 @@ def phase_prev(prev: pathlib.Path, card: str) -> dict:
         old_ms, new_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
         out[tag] = {"rows": N, "earlier_ms": old_ms, "current_ms": new_ms,
                     "speedup": old_ms / new_ms, "turns_ms": times, "max_abs_err": err}
-    out["earlier_ptxas"] = {name: ptxas_info(log) for name, log in logs.items()}
-    out["earlier_sass"] = {name: sass_vi_ops(build / f"{name}.so") for name in libs}
-    say("prev", **out, source=str(prev), card=card)
+    dp_libs = [n for n in ("extd2", "extd2_fold") if n in libs]
+    out["earlier_ptxas"] = {n: ptxas_info(libs[n][1]) for n in libs}
+    out["earlier_sass"] = {n: sass_vi_ops(libs[n][2]) for n in dp_libs}
+    say("prev", **out, source=source, card=card)
     return out
 
 
@@ -922,18 +1110,7 @@ def dp_at_size(mapper, codes, lens, cuda: bool, n_plain: int = 1024) -> dict:
     from gdiet_tpu_torch.ops import dp, extd2
     from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
 
-    seen = []
-    launch = extd2.extd2_batch
-
-    def spy(*args, **kw):
-        seen.append((args, kw))
-        return launch(*args, **kw)
-
-    extd2.extd2_batch = spy
-    try:
-        mapper.fused(codes, lens)
-    finally:
-        extd2.extd2_batch = launch
+    seen = capture_calls(extd2, ["extd2_batch"], lambda: mapper.fused(codes, lens))["extd2_batch"]
     check(len(seen) == 1 and not seen[0][1].get("fold"), "the step made no unfolded DP call")
     (q, t, ln, bd, params, L), _ = seen[0]
     out, _, times = kernel_vs_plain(lambda: extd2.extd2_batch(q, t, ln, bd, params, L),
@@ -1121,18 +1298,7 @@ def step_dp_check(mapper, codes, lens, fold: bool) -> dict:
     from gdiet_tpu_torch.ops import dp, dp_fold, extd2
     from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
 
-    seen = []
-    launch = extd2.extd2_batch
-
-    def spy(*args, **kw):
-        seen.append((args, kw))
-        return launch(*args, **kw)
-
-    extd2.extd2_batch = spy
-    try:
-        mapper.fused(codes, lens)
-    finally:
-        extd2.extd2_batch = launch
+    seen = capture_calls(extd2, ["extd2_batch"], lambda: mapper.fused(codes, lens))["extd2_batch"]
     check(len(seen) == 1 and bool(seen[0][1].get("fold")) == fold,
           f"the step made no {'folded' if fold else 'unfolded'} DP call")
     (q, t, ln, bd, params, L), _ = seen[0]
@@ -1593,14 +1759,165 @@ def lr_workload(n_reads: int, genome_len: int = GENOME_LEN):
     return bases[genome].tobytes().decode(), reads
 
 
-def phase_lr(device, n_timed: int, genome_len: int, card: str, B: int = LR_BATCH) -> dict:
+_STREAM_COLUMN_CALLS = {"n": 0}
+
+
+def _count_stream_columns() -> None:
+    """Count the calls of ``lr_step._stream_columns`` (the plain LR loops'
+    column list, which syncs with the host) from here on."""
+    from gdiet_tpu_torch.pipeline import lr_step
+
+    f = lr_step._stream_columns
+    if getattr(f, "counted", False):
+        return
+
+    def counted(*a, **kw):
+        _STREAM_COLUMN_CALLS["n"] += 1
+        return f(*a, **kw)
+
+    counted.counted = True
+    lr_step._stream_columns = counted
+
+
+def lr_counts_reset() -> None:
+    """Zero the launch counts of the LR path's kernels (band, full-width
+    DP, backtrack, vote_lr) and the call counts of their plain versions
+    (the LR vote loops and ``_stream_columns`` included)."""
+    from gdiet_tpu_torch.ops import dp, dp_band, extd2, vote
+    from gdiet_tpu_torch.pipeline import device_step, lr_step
+
+    _count_stream_columns()
+    _STREAM_COLUMN_CALLS["n"] = 0
+    for c in (extd2.band_launches, extd2.launches, extd2.backtrack_launches, vote.lr_launches,
+              dp_band.calls, dp.calls, device_step.backtrack_calls, lr_step.vote_calls):
+        c.reset()
+
+
+def lr_counts(what: str, cuda: bool) -> dict:
+    """The LR kernels' launches and their plain versions' calls since the
+    last reset; on the card the DP (band or full width), backtrack and vote
+    kernels must have run and no plain version."""
+    from gdiet_tpu_torch.ops import dp, dp_band, extd2, vote
+    from gdiet_tpu_torch.pipeline import device_step, lr_step
+
+    n = {"band_launches": extd2.band_launches.n, "full_width_launches": extd2.launches.n,
+         "backtrack_launches": extd2.backtrack_launches.n,
+         "vote_lr_launches": vote.lr_launches.n, "plain_band_calls": dp_band.calls.n,
+         "plain_dp_calls": dp.calls.n, "plain_backtrack_calls": device_step.backtrack_calls.n,
+         "plain_lr_vote_calls": lr_step.vote_calls.n,
+         "stream_columns_calls": _STREAM_COLUMN_CALLS["n"]}
+    if cuda:
+        check(n["band_launches"] + n["full_width_launches"] > 0 and n["backtrack_launches"] > 0
+              and n["vote_lr_launches"] > 0, f"{what} launched too few kernels: {n}")
+        plain = {k: v for k, v in n.items() if k.startswith(("plain", "stream")) and v}
+        check(not plain, f"{what} called plain versions: {plain}")
+    return n
+
+
+def lr_batch_phases(mapper, batch, sync) -> tuple:
+    """Per-phase ms of one batch through ``map_batch`` (a device sync at
+    each boundary) and the (args, kwargs) of the DP calls it made."""
+    from gdiet_tpu_torch.ops import extd2
+
+    acc: dict = {}
+    last = [0.0]
+
+    def mark(name):
+        sync()
+        now = time.perf_counter()
+        acc[name] = acc.get(name, 0.0) + (now - last[0]) * 1e3
+        last[0] = now
+
+    mapper.mark = mark
+    try:
+        sync()
+        last[0] = time.perf_counter()
+        seen = capture_calls(extd2, ["extd2_batch"], lambda: mapper.map_batch(batch))
+    finally:
+        mapper.mark = None
+    return acc, seen["extd2_batch"]
+
+
+def capture_lr_votes(mapper, reads) -> dict:
+    """The (args, kwargs) the long-read front hands to ``ops/vote.py``'s
+    ``vote_lr`` and ``vote2_pair`` for one batch."""
+    from gdiet_tpu_torch.ops import vote
+
+    lens = np.array([r.l_seq for r in reads], np.int64)
+    seen = capture_calls(vote, ["vote_lr", "vote2_pair"],
+                         lambda: mapper._dispatch_front(reads, lens))
+    check(len(seen["vote_lr"]) == 1 and len(seen["vote2_pair"]) == 1,
+          f"the LR front made {len(seen['vote_lr'])} round-1 and "
+          f"{len(seen['vote2_pair'])} round-2 vote calls")
+    return seen
+
+
+def vote_lr_vs_plain(calls: dict, cuda: bool, what: str) -> dict:
+    """Both entry points of csrc/vote_lr.cu (halves in place)
+    against the plain loops on the concatenated stream over the columns of
+    ``_stream_columns`` (the path's plain version), on one captured batch:
+    round 1's 7 outputs and round 2's packed [B, 16] block exact. Times as
+    kernel_vs_plain's (the plain loops one run each); bounds from this
+    stream (stream_bytes plus per-read inputs and outputs, or the valid
+    columns' operations) and the serial floor (the longest row's walked
+    columns x the cycles of one column's chain)."""
+    from gdiet_tpu_torch.ops import vote
+    from gdiet_tpu_torch.pipeline import lr_step
+
+    (a1, _), = calls["vote_lr"]
+    (a2, _), = calls["vote2_pair"]
+    halves, (ex, dist, cov, K) = a1[:6], a1[6:10]
+    lo1, hi1, lo2, hi2 = a2[8:12]
+    fok, rok = halves[2], halves[5]
+    check(valid_first(fok) and valid_first(rok), f"the captured {what} stream is not valid-first")
+    keys, qv, okv, strand = vote.concat_stream(*halves)
+    strand = strand.tolist()
+    cols = lr_step._stream_columns(fok, rok)
+    got1, ref1, t1 = kernel_vs_plain(
+        lambda: vote.vote_lr(*halves, ex, dist, cov, K),
+        lambda: lr_step._vote_scan_lr(keys, qv, okv, strand, ex, dist, cov, K, cols),
+        cuda, plain_runs=1)
+    err1 = check_equal([got1[n] for n in vote.LR_OUTPUTS], [ref1[n] for n in vote.LR_OUTPUTS],
+                       vote.LR_OUTPUTS, f"vote_lr on {what}")
+    got2, ref2, t2 = kernel_vs_plain(
+        lambda: vote.vote2_pair(*halves, ex, dist, lo1, hi1, lo2, hi2),
+        lambda: lr_step.vote2_packed_pair(keys, qv, okv, strand, ex, dist, lo1, hi1, lo2, hi2,
+                                          cols),
+        cuda, plain_runs=1)
+    err2 = check_equal([got2], [ref2], ("vote2",), f"vote2_pair on {what}")
+    B, A = fok.shape
+    sb = stream_bytes(fok, rok)
+    floor = sb["longest_row_columns"] * VOTE_LR_CYCLES_PER_COLUMN / SM_CLOCK_HZ * 1e3
+    ops = float(sb["valid_columns"] * VOTE_LR_OPS_PER_COLUMN)
+    r1 = {**t1, "max_abs_err": err1, **bound(sb["stream_bytes"] + B * 20 + B * K * 32 + B * 4, ops),
+          "serial_floor_ms": floor, "rows_full": int((ref1["out_len"] == K).sum())}
+    r2 = {**t2, "max_abs_err": err2, **bound(sb["stream_bytes"] + B * 32 + B * 64, 2 * ops),
+          "serial_floor_ms": floor,
+          "windows_open": int((hi1 > lo1 + 1).sum() + (hi2 > lo2 + 1).sum()),
+          "best_runs": int((ref2[:, 0] > 0).sum() + (ref2[:, 8] > 0).sum())}
+    for r, name, fn in ((r1, "vote_lr_kernel",
+                         lambda: vote.vote_lr(*halves, ex, dist, cov, K)),
+                        (r2, "vote2_pair_kernel",
+                         lambda: vote.vote2_pair(*halves, ex, dist, lo1, hi1, lo2, hi2))):
+        r["share_of_bound"] = r["bound_ms"] / r["kernel_ms"]
+        if cuda:
+            r["device_ms"] = device_ms(fn, name)
+            r["wrapper_host_us"] = host_us(fn)
+            if r["device_ms"]:
+                r["device_share_of_bound"] = r["bound_ms"] / r["device_ms"]
+    return {"what": what, "B": B, "M": 2 * (A + 1), "K": K, **sb,
+            "plain_columns_visited": len(cols), "round1": r1, "round2": r2}
+
+
+def phase_lr(device, n_timed: int, genome_len: int, card: str, B: int = LR_BATCH) -> tuple:
     """The HiFi path at full size: bench.py's lr_stats options and mapper
     budgets, batches of B reads, 1 warm-up + n_timed timed through
     map_stream. Checks: >= 90% of reads mapped, the first reads' SAM equal
-    to the scalar oracle's, band and backtrack kernel launches > 0 and no
-    plain call in the timed window; one batch's per-phase times; one
-    chunk's captured DP inputs through the kernels and the plain versions
-    once more, exact."""
+    to the scalar oracle's, band, backtrack and vote_lr launches > 0 and no
+    plain call (the LR vote loops and ``_stream_columns`` included) in the
+    timed window; one batch's per-phase times; one chunk's captured DP
+    inputs through the kernels and the plain versions once more, exact.
+    Returns (the phase's report, one batch's captured vote calls)."""
     import torch
 
     from gdiet_tpu_torch import config
@@ -1629,22 +1946,13 @@ def phase_lr(device, n_timed: int, genome_len: int, card: str, B: int = LR_BATCH
     batches = [reads[i * B:(i + 1) * B] for i in range(n_timed + 1)]
 
     # ---- the LR path: counts reset just before, read just after ----
-    counts = (extd2.band_launches, extd2.backtrack_launches, extd2.launches,
-              dp_band.calls, device_step.backtrack_calls)
     results = list(mapper.map_stream(iter(batches[:1])))  # warm-up batch
-    for c in counts:
-        c.reset()
+    lr_counts_reset()
     t0 = time.perf_counter()
     results += list(mapper.map_stream(iter(batches[1:])))
     sync()
     wall = time.perf_counter() - t0
-    band_n, bt_n, full_n, plain_n, plain_bt_n = (c.n for c in counts)
-    if cuda:
-        check(band_n > 0 and bt_n > 0,
-              f"the LR path launched {band_n} band and {bt_n} backtrack kernels")
-        check(plain_n == 0 and plain_bt_n == 0,
-              f"the LR path called the plain banded DP {plain_n} and the plain "
-              f"backtrack {plain_bt_n} times")
+    counts = lr_counts("the LR path", cuda)
     regs = [r for batch in results for r in batch]
     n_mapped = sum(bool(r) for r in regs)
     check(n_mapped >= 0.9 * len(reads), f"only {n_mapped}/{len(reads)} reads mapped")
@@ -1654,31 +1962,7 @@ def phase_lr(device, n_timed: int, genome_len: int, card: str, B: int = LR_BATCH
     check(mine == oracle, "SAM of the first reads differs from the scalar oracle's")
 
     # ---- per-phase times of one batch (a device sync at each boundary) ----
-    acc: dict = {}
-    last = [0.0]
-
-    def mark(name):
-        sync()
-        now = time.perf_counter()
-        acc[name] = acc.get(name, 0.0) + (now - last[0]) * 1e3
-        last[0] = now
-
-    seen = []
-    launch = extd2.extd2_batch
-
-    def spy(*args, **kw):
-        seen.append((args, kw))
-        return launch(*args, **kw)
-
-    mapper.mark = mark
-    extd2.extd2_batch = spy
-    try:
-        sync()
-        last[0] = time.perf_counter()
-        mapper.map_batch(batches[1])
-    finally:
-        mapper.mark = None
-        extd2.extd2_batch = launch
+    acc, seen = lr_batch_phases(mapper, batches[1], sync)
 
     # ---- the kernels on the DP inputs the mapper gives them: the
     # smallest windowed bucket of that batch ----
@@ -1700,16 +1984,128 @@ def phase_lr(device, n_timed: int, genome_len: int, card: str, B: int = LR_BATCH
            "reads_per_s": B * n_timed / wall, "timed_wall_s": wall,
            "fallback_reads": mapper.stats["fallback_reads"],
            "host_dp_segments": mapper.stats["host_dp_segments"],
-           "mapped_reads": n_mapped, "oracle_reads_equal": LR_ORACLE,
-           "band_launches": band_n, "backtrack_launches": bt_n,
-           "full_width_launches": full_n, "plain_band_calls": plain_n,
-           "plain_backtrack_calls": plain_bt_n,
+           "mapped_reads": n_mapped, "oracle_reads_equal": LR_ORACLE, **counts,
            "phase_ms": acc, "dp_calls_in_batch": len(seen),
            "step_dp": {"Lmax": L, "Lt": Lt, "rows": int(q.shape[0]),
                        "live_rows": int((ln > 0).sum()), "max_abs_err": path_err,
                        "backtrack_max_abs_err": path_bt_err},
            "card": card}
     say("lr", **res)
+    return res, capture_lr_votes(mapper, batches[1])
+
+
+def phase_kernel_vote_lr(device, card: str, calls: dict, built=None) -> dict:
+    """Both entry points of csrc/vote_lr.cu against the plain LR loops on
+    the vote calls captured from one HiFi batch (vote_lr_vs_plain). With
+    ``built``: ptxas registers, static shared memory and spills."""
+    res = vote_lr_vs_plain(calls, torch_cuda(device), "a HiFi batch")
+    if built:
+        res["ptxas"] = ptxas_info(built["vote_lr"][2])
+    say("kernel_vote_lr", **res, card=card)
+    return res
+
+
+ONT_READ_LEN, ONT_BATCH, ONT_TIMED = 30_000, 16, 2
+
+
+def ont_workload(n_reads: int, genome_len: int = GENOME_LEN, read_len: int = ONT_READ_LEN):
+    """bench.py's gen_ont_reads recipe (bench.py:383-416) on the bench
+    genome, in memory: reads of read_len source bases with 3%
+    substitutions, 1% insertions and 1% deletions, half
+    reverse-complemented (the first n_reads of bench.py's 100). Returns
+    (genome, reads)."""
+    from gdiet_tpu_torch.io.fastx import SeqRecord
+
+    g = np.random.default_rng(SEED).integers(0, 4, genome_len, dtype=np.int64)
+    rng = np.random.default_rng(SEED + 2)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    reads = []
+    for n in range(n_reads):
+        st = int(rng.integers(0, len(g) - read_len))
+        out = []
+        for b in g[st: st + read_len]:
+            r = rng.random()
+            if r < 0.01:  # deletion
+                continue
+            if r < 0.02:  # insertion
+                out.append(int(rng.integers(0, 4)))
+            if r < 0.05:  # substitution
+                b = (b + int(rng.integers(1, 4))) % 4
+            out.append(int(b))
+        arr = np.array(out, np.int64)
+        if rng.random() < 0.5:
+            arr = 3 - arr[::-1]
+        s_ = bases[arr].tobytes().decode()
+        reads.append(SeqRecord(f"o{n}", s_, "I" * len(s_)))
+    return bases[g].tobytes().decode(), reads
+
+
+def phase_ont(device, n_timed: int, genome_len: int, card: str, B: int = ONT_BATCH,
+              read_len: int = ONT_READ_LEN) -> dict:
+    """The ONT path at full size, its first run on the card: bench.py's
+    ont_stats options and mapper budgets (max_read_len 32,768, seed budget
+    4,096, hit budget 8,192, vote budget 4,096, band 1300, K = 3) on
+    ont_workload's 30 kb reads, batches of B, 1 warm-up + n_timed timed
+    through map_stream. Checks: >= 90% of reads mapped; the DP, backtrack
+    and vote_lr kernels launched and no plain version called (the LR vote
+    loops and ``_stream_columns`` included) in the timed window; one
+    batch's captured vote stream (M = 8,194) through vote_lr.cu and the
+    plain loops, exact. Reports reads/s, fallbacks and host DP segments
+    (``LongReadMapper.stats``) and one batch's per-phase times."""
+    import torch
+
+    from gdiet_tpu_torch import config
+    from gdiet_tpu_torch.index import build_index
+    from gdiet_tpu_torch.pipeline.longread import LongReadMapper
+
+    cuda = torch_cuda(device)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    genome, reads = ont_workload(B * (n_timed + 1), genome_len, read_len)
+    gen_s = time.perf_counter() - t0
+    io_, mo = config.options_for(
+        "map-ont", variant="lr", pattern="10", k=15, w=10, max_seeds=0.2, bw=1300,
+        vt_dis=1000, vt_nb_loc=3, vt_df1=0.007, vt_df2=0.007, max_min_gap=4000, vt_f=0.04,
+        min_dp_max=35000, vt_cov=0.3, best_n=1)
+    t0 = time.perf_counter()
+    mi = build_index([("chr1", genome)], io_, device)
+    sync()
+    index_s = time.perf_counter() - t0
+    mapper = LongReadMapper(mi, mo, max_read_len=32768, seed_budget=4096,
+                            shift_seed_budget=1024, hit_budget=8192, vote_budget=4096,
+                            device=device)
+    batches = [reads[i * B:(i + 1) * B] for i in range(n_timed + 1)]
+    t0 = time.perf_counter()
+    results = list(mapper.map_stream(iter(batches[:1])))  # warm-up batch
+    sync()
+    warm_s = time.perf_counter() - t0
+    warm = dict(mapper.stats)
+    lr_counts_reset()
+    t0 = time.perf_counter()
+    results += list(mapper.map_stream(iter(batches[1:])))
+    sync()
+    wall = time.perf_counter() - t0
+    counts = lr_counts("the ONT path", cuda)
+    regs = [r for batch in results for r in batch]
+    n_mapped = sum(bool(r) for r in regs)
+    check(n_mapped >= 0.9 * len(reads), f"only {n_mapped}/{len(reads)} ONT reads mapped")
+    phases, seen = lr_batch_phases(mapper, batches[1], sync)
+    calls = capture_lr_votes(mapper, batches[1])
+    vote_run = vote_lr_vs_plain(calls, cuda, "an ONT batch")
+    res = {"reads": len(reads), "timed_reads": B * n_timed, "batch": B,
+           "read_len_source": read_len, "mean_read_len": float(np.mean([r.l_seq for r in reads])),
+           "reads_per_s": B * n_timed / wall, "timed_wall_s": wall, "warm_up_s": warm_s,
+           "workload_s": gen_s, "index_build_s": index_s,
+           "fallback_reads": mapper.stats["fallback_reads"] - warm["fallback_reads"],
+           "warm_up_fallback_reads": warm["fallback_reads"],
+           "host_dp_segments": mapper.stats["host_dp_segments"] - warm["host_dp_segments"],
+           "mapped_reads": n_mapped, **counts, "phase_ms": phases,
+           "dp_calls_in_batch": len(seen), "vote": vote_run, "card": card}
+    say("ont", **res)
     return res
 
 
@@ -1720,8 +2116,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="On-card smoke run of gdiet_tpu_torch.")
     ap.add_argument("--prev", type=pathlib.Path, default=None,
-                    help="a directory with earlier extd2.cu and extd2_fold.cu sources: "
-                         "time them in turns against the checkout's")
+                    help="a directory with earlier extd2.cu, extd2_fold.cu or vote_scan.cu "
+                         "sources: time them in turns against the checkout's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA device: this smoke run needs a GPU", file=sys.stderr)
@@ -1737,9 +2133,11 @@ def main(argv=None) -> int:
     kf = phase_kernel_fold("cuda", card=card, built=built, **KERNEL_SHAPE)
     kf_pe = phase_kernel_fold("cuda", card=card, phase="kernel_fold_pe",
                               **{**KERNEL_SHAPE, "N": pe_dp_rows(PE_PAIRS)})
-    kv = phase_kernel_vote("cuda", card, built=built)
-    if args.prev is not None:
-        phase_prev(args.prev, card)
+    prev = build_prev(args.prev) if args.prev is not None else {}
+    kv = phase_kernel_vote("cuda", card, built=built,
+                           prev=prev["vote_scan"][0] if "vote_scan" in prev else None)
+    if prev:
+        phase_prev(prev, card, str(args.prev))
     phase_golden("cuda")
     phase_api("cuda", card)
     m = phase_main("cuda", BENCH_B, N_TIMED, GENOME_LEN, card)
@@ -1748,10 +2146,14 @@ def main(argv=None) -> int:
     pe = phase_pe("cuda", PE_PAIRS, PE_TIMED, GENOME_LEN, card)
     kb = phase_kernel_band("cuda", card, built=built)
     phase_golden_lr(card)
-    lr = phase_lr("cuda", LR_TIMED, GENOME_LEN, card)
+    lr, lr_votes = phase_lr("cuda", LR_TIMED, GENOME_LEN, card)
+    kvl = phase_kernel_vote_lr("cuda", card, lr_votes, built=built)
+    del lr_votes
+    ont = phase_ont("cuda", ONT_TIMED, GENOME_LEN, card)
     src = "gdiet_tpu_torch/csrc/"
     hifi = kb["runs"][0]  # band 500: the HiFi workload's budget
     kv_main = kv["runs"][0]  # the main phase's stream (M = 130, K = 2)
+    kvl1, kvl2 = kvl["round1"], kvl["round2"]  # the HiFi batch's stream (M = 1,026)
     bound_keys = ("bound_ms", "bound_by")
     print(json.dumps({"kernels": [
         {"name": "extd2", "route": "cuda", "source": src + "extd2.cu",
@@ -1791,8 +2193,20 @@ def main(argv=None) -> int:
          "replaces": "gdiet_tpu/pipeline/device_step.py:54",
          "launches": m["vote_launches"],
          "max_abs_err": max(r["max_abs_err"] for r in kv["runs"]),
-         "ms": kv_main["kernel_ms"], "plain_ms": kv_main["plain_ms"],
+         "ms": kv_main["device_ms"] or kv_main["kernel_ms"], "plain_ms": kv_main["plain_ms"],
          **{x: kv_main[x] for x in bound_keys}, "library_ms": None},
+        # both entry points per front (round 1, then both round-2 windows);
+        # the vote kernels' ms is their profiled device time, where measured
+        {"name": "vote_lr", "route": "cuda", "source": src + "vote_lr.cu",
+         "replaces": "gdiet_tpu/pipeline/lr_step.py:41",
+         "launches": lr["vote_lr_launches"],
+         "max_abs_err": max(r[x]["max_abs_err"] for r in (kvl, ont["vote"])
+                            for x in ("round1", "round2")),
+         "ms": sum(r["device_ms"] or r["kernel_ms"] for r in (kvl1, kvl2)),
+         "plain_ms": kvl1["plain_ms"] + kvl2["plain_ms"],
+         "bound_ms": kvl1["bound_ms"] + kvl2["bound_ms"],
+         "bound_by": max((kvl1, kvl2), key=lambda r: r["bound_ms"])["bound_by"],
+         "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

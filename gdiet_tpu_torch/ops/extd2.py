@@ -1,6 +1,7 @@
 """Wrappers of the Hopper kernels in ``csrc/``: the DP (``extd2.cu``,
 ``extd2_fold.cu``, ``extd2_band.cu``) and the windowed backtrack
-(``backtrack_band.cu``).
+(``backtrack_band.cu``); it builds and binds every ``csrc/`` kernel (the
+vote kernels' wrappers are in ``ops/vote.py``).
 
 ``extd2_batch`` is the one DP entry point and mirrors
 ``extd2_batch_pallas``: it takes the tensors of ``ops/dp.py::extd2_batch``.
@@ -36,8 +37,9 @@ from gdiet_tpu_torch.ops import dp, dp_band, dp_fold
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-# one shared library per csrc/<name>.cu (vote_scan's wrapper: ops/vote.py)
-KERNELS = ("extd2", "extd2_fold", "extd2_band", "backtrack_band", "vote_scan")
+# one shared library per csrc/<name>.cu (the vote kernels' wrappers:
+# ops/vote.py); csrc/*.cuh are the headers they share
+KERNELS = ("extd2", "extd2_fold", "extd2_band", "backtrack_band", "vote_scan", "vote_lr")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -61,7 +63,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[pathlib.Path, pathlib.Path]:
     src = CSRC / f"{name}.cu"
-    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # every header counts: a source may include any of them
+    deps = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(src.read_bytes() + deps + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, BUILD_DIR / f"{name}_{tag}.so"
 
 
@@ -97,26 +101,33 @@ def build_all(names=KERNELS, verbose: bool = False) -> dict:
 
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# each library's C entry point and its arguments
+_HALVES = [_P] * 6 + [_I64]  # fk, fq, fok, rk, rq, rok, their row stride
+# each library's C entry points and their arguments
 ENTRIES = {
-    "extd2": ("gdiet_extd2", [_P] * 7 + [_I64] * 5 + [_I] * 8 + [_P]),
-    "extd2_fold": ("gdiet_extd2_fold", [_P] * 7 + [_I64] * 8 + [_I] * 8 + [_P]),
-    "extd2_band": ("gdiet_extd2_band", [_P] * 7 + [_I64] * 6 + [_I] * 10 + [_P]),
-    "backtrack_band": ("gdiet_backtrack_band", [_P] * 7 + [_I64] * 8 + [_I] * 2 + [_P]),
-    "vote_scan": ("gdiet_vote_scan", [_P] * 18 + [_I64] * 2 + [_I] + [_P]),
+    "extd2": {"gdiet_extd2": [_P] * 7 + [_I64] * 5 + [_I] * 8 + [_P]},
+    "extd2_fold": {"gdiet_extd2_fold": [_P] * 7 + [_I64] * 8 + [_I] * 8 + [_P]},
+    "extd2_band": {"gdiet_extd2_band": [_P] * 7 + [_I64] * 6 + [_I] * 10 + [_P]},
+    "backtrack_band": {"gdiet_backtrack_band": [_P] * 7 + [_I64] * 8 + [_I] * 2 + [_P]},
+    "vote_scan": {"gdiet_vote_scan": _HALVES + [_P] * 14 + [_I64] * 2 + [_I] + [_P]},
+    "vote_lr": {"gdiet_vote_lr": _HALVES + [_P] * 10 + [_I64] * 2 + [_I] + [_P],
+                "gdiet_vote2_pair": _HALVES + [_P] * 7 + [_I64] * 2 + [_P]},
 }
+
+
+def bind(so, name: str) -> ctypes.CDLL:
+    """Load a built library and declare its entry points' arguments."""
+    lib = ctypes.CDLL(str(so))
+    for entry, argtypes in ENTRIES[name].items():
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return lib
 
 
 def _library(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
-        so, _, _ = build_all([name])[name]
-        lib = ctypes.CDLL(str(so))
-        entry, argtypes = ENTRIES[name]
-        fn = getattr(lib, entry)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-        _libs[name] = lib
+        lib = _libs[name] = bind(build_all([name])[name][0], name)
     return lib
 
 

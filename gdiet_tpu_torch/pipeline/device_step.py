@@ -22,7 +22,8 @@ uint64 values are int64 bit patterns (``gdiet_tpu_torch/u64.py``). TPU
 gather workarounds (one-hot matmul selects, chunk-row window gathers) are
 plain gathers here, with indices clamped explicitly where JAX clamps
 silently. The vote scan runs through ``ops/vote.py``: ``csrc/vote_scan.cu``
-on the card, the plain loop ``vote_scan`` below on the CPU.
+on the card (reading the strand halves in place), the plain loop
+``vote_scan`` below on the CPU (over their concatenation).
 
 ``backtrack_antidiag`` is the plain version of ``csrc/backtrack_band.cu``
 for every dirs layout: full width and folded (this step) and the banded
@@ -633,15 +634,8 @@ def fused_map_step(codes, lens, tables: dict, cfg: StepConfig,
     vt_thr = torch.clamp(vt_thr, min=1)
     vt_rec = torch.where(capped_mask, int(cfg.max_nb_seeds * cfg.rec_frac),
                          (mv_f * cfg.rec_frac).to(I64))
-    barrier = torch.full((B, 1), U64_MAX, dtype=I64, device=dev)
-    bq = torch.zeros((B, 1), dtype=I32, device=dev)
-    bok = torch.zeros((B, 1), dtype=torch.bool, device=dev)
-    A = cfg.A
-    vt = vote.vote_scan(
-        torch.cat([fk, barrier, rk, barrier], 1), torch.cat([fq, bq, rq, bq], 1),
-        torch.cat([fok, bok, rok, bok], 1),
-        (torch.arange(2 * (A + 1), device=dev) > A).to(I32),
-        bw, vt_thr.to(I32), vt_rec.to(I32), K)
+    # the halves are read in place (valid-first, as ops/vote.py requires)
+    vt = vote.vote_scan(fk, fq, fok, rk, rq, rok, bw, vt_thr.to(I32), vt_rec.to(I32), K)
     _mark("vote")
     if upto == "vote":
         return vt

@@ -8,12 +8,16 @@ map.c:1355-1445) and both round-2 window votes (``_vote2_scan``,
 map.c:1182-1271), packed into one [B, 4 + 8K + 4 + 16] int32 meta tensor
 that ``unpack_lr_meta`` reads on the host.
 
-The scans are plain torch loops over the concatenated fwd | barrier | rev |
-barrier hit stream, as the short-read vote is. Each strand's hits sort
-valid-first, and a run of invalid columns acts as one (it closes the open
-run and leaves nothing open), so the loops visit only the columns where
-some read still has a hit plus one invalid column per strand: the same
-result in fewer steps. uint64 keys are int64 bit patterns (``u64.py``).
+Both votes run through ``ops/vote.py``: ``csrc/vote_lr.cu`` on the card
+(round 1, then both round-2 windows in one launch, reading the strand
+halves in place), the plain loops below on the CPU. The plain loops walk
+the concatenated fwd | barrier | rev | barrier hit stream, as the
+short-read vote does; ``vote_calls`` counts their calls. Each strand's hits
+sort valid-first, and a run of invalid columns acts as one (it closes the
+open run and leaves nothing open), so under that precondition the loops
+visit only the columns ``_stream_columns`` gives: those where some read
+still has a hit plus one invalid column per strand, the same result in
+fewer steps. uint64 keys are int64 bit patterns (``u64.py``).
 """
 
 from __future__ import annotations
@@ -21,14 +25,17 @@ from __future__ import annotations
 import torch
 
 from gdiet_tpu_torch import u64
+from gdiet_tpu_torch.ops import LaunchCount, vote
 from gdiet_tpu_torch.pipeline.device_step import StepConfig, collect_hits
-from gdiet_tpu_torch.u64 import U32, U64_MAX, srl
+from gdiet_tpu_torch.u64 import U32, srl
 
 I64 = torch.int64
 I32 = torch.int32
 
 LR_META_B = 4  # fallback, shift, extracted, kept_len
 LR_META_BK = 8  # score, fq, lq, str, chrom, ft, lt, lt_adj
+
+vote_calls = LaunchCount()
 
 
 def _raw_target(t, q, sgn: int, extracted):
@@ -60,7 +67,9 @@ def _stream_columns(fok, rok) -> list:
 def _vote_scan_lr(keys, qpos, valid, strand: list, extracted, vt_distance,
                   cov_thr, K: int, cols: list) -> dict:
     """Round-1 vote (lr_step.py:41-142): coverage-gated runs, raw-target
-    span tracking, score-sorted top-K insertion."""
+    span tracking, score-sorted top-K insertion. The plain version of
+    ``csrc/vote_lr.cu``'s round 1."""
+    vote_calls.n += 1
     B = keys.shape[0]
     dev = keys.device
 
@@ -123,7 +132,9 @@ def _vote_scan_lr(keys, qpos, valid, strand: list, extracted, vt_distance,
 def _vote2_scan(keys, qpos, valid, strand: list, extracted, vt_distance,
                 lo, hi, cols: list) -> dict:
     """Round-2 vote (lr_step.py:146-220): the best run constrained to the
-    query window (lo, hi), counting only in-window hits."""
+    query window (lo, hi), counting only in-window hits. The plain version
+    of ``csrc/vote_lr.cu``'s round 2, one window."""
+    vote_calls.n += 1
     B = keys.shape[0]
     dev = keys.device
 
@@ -247,35 +258,24 @@ def lr_front(codes, lens, tables: dict, cov_thr, vt_dis, cfg: StepConfig,
     codes [B, Lmax] u8, lens [B] i64, cov_thr [B] i32, vt_dis [B] i64 (u64
     bits); ``tables`` from ``TorchFusedMapper``'s layout. Returns the packed
     meta [B, 4 + 8K + 4 + 16] i32."""
-    B = codes.shape[0]
-    dev = codes.device
     (fallback, shift, extracted, _mv_n, _capped,
      fk, fq, fok, rk, rq, rok) = collect_hits(codes, lens, tables, cfg)
-    A_stream = cfg.A
     # compact the voted stream: the strand-sorted hits put valid ones first,
-    # so the scans run over vote_budget slots; overflowing reads fall back
+    # so the scans run over vote_budget slots (views, not copies);
+    # overflowing reads fall back
     C = cfg.vote_budget
-    if C and C < A_stream:
+    if C and C < cfg.A:
         fallback = (fallback | (fok.sum(1, dtype=I32) > C)
                     | (rok.sum(1, dtype=I32) > C))
         fk, fq, fok = fk[:, :C], fq[:, :C], fok[:, :C]
         rk, rq, rok = rk[:, :C], rq[:, :C], rok[:, :C]
-        A_stream = C
-    barrier = torch.full((B, 1), U64_MAX, dtype=I64, device=dev)
-    bq = torch.zeros((B, 1), dtype=I32, device=dev)
-    bok = torch.zeros((B, 1), dtype=torch.bool, device=dev)
-    keys = torch.cat([fk, barrier, rk, barrier], 1)
-    qv = torch.cat([fq, bq, rq, bq], 1)
-    okv = torch.cat([fok, bok, rok, bok], 1)
-    strand = [0] * (A_stream + 1) + [1] * (A_stream + 1)
-    cols = _stream_columns(fok, rok)
-    vt = _vote_scan_lr(keys, qv, okv, strand, extracted, vt_dis, cov_thr,
-                       cfg.K, cols)
+    # the halves are read in place (valid-first, as ops/vote.py requires)
+    halves = (fk, fq, fok, rk, rq, rok)
+    vt = vote.vote_lr(*halves, extracted, vt_dis, cov_thr, cfg.K)
     (kept_len, score, fq2, lq, strv, chrom, ft2, lt2, ltadj,
      lo1, hi1, lo2, hi2) = _lr_filters_device(
         vt, lens.to(I64), cov_thr, k, vt_df1, vt_f, bw, cfg.K)
-    vt2p = vote2_packed_pair(keys, qv, okv, strand, extracted, vt_dis,
-                             lo1, hi1, lo2, hi2, cols)
+    vt2p = vote.vote2_pair(*halves, extracted, vt_dis, lo1, hi1, lo2, hi2)
     return torch.cat([
         fallback.to(I32)[:, None], shift.to(I32)[:, None],
         extracted.to(I32)[:, None], kept_len.to(I32)[:, None],

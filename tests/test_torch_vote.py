@@ -1,5 +1,6 @@
 """The short-read vote scan: the port's plain loop vs gdiet_tpu's
-``_vote_scan``, and ``csrc/vote_scan.cu`` vs the plain loop.
+``_vote_scan``, ``ops/vote.py::vote_scan`` on CPU halves vs the plain loop
+on their concatenation, and ``csrc/vote_scan.cu`` vs the plain loop.
 
 Seeded hit streams made with numpy, laid out as the fused step lays them
 out (forward hits sorted, a barrier column, reverse hits sorted, a barrier
@@ -7,7 +8,10 @@ column; M = 2(A+1)): clustered keys that make runs, invalid holes, keys
 near the top of the uint64 range (unsigned distance), runs whose keys
 straddle the strand barrier, stretches of columns with no valid hit in
 any row, rows whose slot list fills up and rows left with only the
-recovery candidate. Tolerance: exact, on all 11 outputs.
+recovery candidate. The wrapper and the kernel take the two halves in
+place (column views of wider tensors here); the kernel's streams have no
+holes, so each half's valid columns come first, its precondition.
+Tolerance: exact, on all 11 outputs.
 
 JAX is imported inside the test that uses it, so that the CUDA cases also
 run on a GPU host without JAX:
@@ -32,9 +36,10 @@ def _one_torch_thread():
 U64_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
-def vote_streams(B: int, A: int, seed: int):
+def vote_streams(B: int, A: int, seed: int, holes: bool = True):
     """(keys u64, qpos i32, valid bool [B, M], strand i32 [M], vt_distance
-    i64, vt_threshold i32, vt_rec_threshold i32 [B]) with M = 2(A+1)."""
+    i64, vt_threshold i32, vt_rec_threshold i32 [B]) with M = 2(A+1).
+    With ``holes=False`` each half's valid columns come first."""
     rng = np.random.default_rng(seed)
     M = 2 * (A + 1)
     keys = np.full((B, M), U64_MAX, np.uint64)
@@ -61,7 +66,7 @@ def vote_streams(B: int, A: int, seed: int):
             keys[b, off:off + n] = k
             qpos[b, off:off + n] = rng.integers(0, 300, n)
             valid[b, off:off + n] = True
-            if b % 3 == 1 and n:  # invalid holes inside the stream
+            if holes and b % 3 == 1 and n:  # invalid holes inside the stream
                 valid[b, off:off + n] &= rng.random(n) >= 0.05
     strand = np.array([0] * (A + 1) + [1] * (A + 1), np.int32)
     dist = rng.integers(0, 60, B).astype(np.int64)
@@ -74,6 +79,19 @@ def vote_streams(B: int, A: int, seed: int):
 def _torch(arrays, device="cpu"):
     return [torch.from_numpy(a.view(np.int64) if a.dtype == np.uint64 else a).to(device)
             for a in arrays]
+
+
+def halves(keys, qpos, valid, device="cpu", pad: int = 3) -> list:
+    """(fk, fq, fok, rk, rq, rok) of a stream, as column views of [B, A +
+    pad] tensors."""
+    A = (keys.shape[1] - 2) // 2
+    out = []
+    for a in (keys, qpos, valid):
+        for off in (0, A + 1):
+            h = a[:, off:off + A]
+            wide = np.concatenate([h, np.zeros((h.shape[0], pad), h.dtype)], 1)
+            out += _torch([wide], device)
+    return [t[:, :A] for t in (out[0], out[2], out[4], out[1], out[3], out[5])]
 
 
 @pytest.mark.parametrize("K,seed", [(2, 11), (20, 12)])
@@ -93,14 +111,17 @@ def test_plain_matches_jax(K, seed):
                      jnp.asarray(strand), jnp.asarray(dist.astype(np.uint64)),
                      jnp.asarray(thr), jnp.asarray(rec), K=K, A=A)
     calls = device_step.vote_calls.n
-    got = vote.vote_scan(*_torch(arrays), K)  # CPU tensors: the plain loop
+    h = halves(keys, qpos, valid)
+    got = vote.vote_scan(*h, *_torch((dist, thr, rec)), K)  # CPU: the plain loop
     assert device_step.vote_calls.n == calls + 1 and vote.launches.n == 0
+    plain = device_step.vote_scan(*_torch((keys, qpos, valid, strand, dist, thr, rec)), K)
     for name in vote.OUTPUTS:
         want = np.asarray(ref[name])
         have = got[name].numpy()
         if name.endswith("target"):
             have = have.view(np.uint64)
         assert have.dtype == want.dtype and np.array_equal(have, want), name
+        assert torch.equal(got[name], plain[name]), name
     out_len, r_score = got["out_len"].numpy(), got["r_score"].numpy()
     assert (out_len == K).any() and ((out_len == 0) & (r_score > 0)).any()
 
@@ -114,13 +135,16 @@ def test_plain_matches_jax(K, seed):
     (64, 30, 310),  # more slots than shared memory holds: slots in the outputs
 ])
 def test_cuda_kernel_matches_plain(B, A, K):
+    """The kernel on the halves in place (valid-first, no holes) against
+    the plain loop on their concatenation."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
-    args = _torch(vote_streams(B, A, B + K), "cuda")
+    keys, qpos, valid, strand, *per_row = vote_streams(B, A, B + K, holes=False)
+    per_row = _torch(per_row, "cuda")
     launches = vote.launches.n
-    got = vote.vote_scan(*args, K)
+    got = vote.vote_scan(*halves(keys, qpos, valid, "cuda"), *per_row, K)
     torch.cuda.synchronize()
     assert vote.launches.n == launches + 1
-    ref = device_step.vote_scan(*args, K)
+    ref = device_step.vote_scan(*_torch((keys, qpos, valid, strand), "cuda"), *per_row, K)
     for name in vote.OUTPUTS:
         assert torch.equal(got[name], ref[name]), name
