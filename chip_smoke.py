@@ -140,6 +140,38 @@ JAX. Phases, each printing one line:
    ``vote_lr.cu`` and the plain loops, exact. Reads/s, fallbacks and host
    DP segments (``LongReadMapper.stats``), one batch's per-phase times.
 
+16. mesh (after main): the main phase's workload, one batch of 10,016 reads
+   at the bench budgets, through ``ShortReadMapper(mesh=...)`` on the
+   virtual meshes (2, 2), (1, 4) and (4, 1), every cell on ``cuda:0``
+   (``parallel/dist.py``: reads split over the data rows, the index split
+   by key range, the shards' hits merged on the card). Launch counts reset
+   just before and read just after each meshed run: the vote, DP and
+   backtrack kernels launched and no plain version. Exact against the
+   single-device mapper on the same batch: meta (``opsrow`` through the op
+   rows it points to), ops and the SAM of ``map_stream_sam``. Each data
+   row's merged vote stream (M = 2(64 n_ref + 1)) through vote_scan.cu and
+   the plain loop, exact, timed as in phase 4. The step's ms per batch per
+   mesh beside the single-device step's: one card's virtual mesh, so the
+   sharded path's overhead, not scaling. With 2 or more cards visible the
+   phase runs again on distinct cards (``mesh_cards``); otherwise a line
+   says it did not run and why (neither a pass nor a failure).
+17. multihost: two processes of the CLI joined through
+   ``GDIET_COORDINATOR`` (gloo, a free local port), both on ``cuda:0``,
+   each mapping half of ``tests/data/reads.fq`` with its own counts reset
+   before and read after (the SR kernels launched, no plain version): both
+   exit 0 and log a group of 2, and their records concatenated equal
+   ``golden.sam``.
+18. profile: the SE CLI with ``-v 4`` on the main phase's 10,016 reads:
+   the four five-stage ``[PROFILING]`` rows (re-run estimates of
+   ``staged_times``) each > 0 ns, and the SAM equal to the run without
+   ``-v 4``; counts reset just before and read just after the ``-v 4``
+   run (the SR kernels launched, no plain version).
+19. mesh_lr (after kernel_vote_lr): one HiFi batch (256 reads, the lr
+   phase's recipe and budgets) through a (2, 2) virtual mesh of
+   ``cuda:0``: the front's packed meta and the SAM equal the single-device
+   run's; the band, backtrack and vote_lr kernels launched and no plain
+   version.
+
 Then a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before the last line is printed. Without a
 GPU it exits non-zero at once.
@@ -161,6 +193,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 DATA = ROOT / "tests" / "data"
 GENOME_LEN, READ_LEN, SUB_RATE, SEED = 2_000_000, 150, 0.005, 20260816
 BENCH_B, N_TIMED = 10016, 4
+MAIN_BUDGETS = dict(max_read_len=160, seed_budget=32, shift_seed_budget=16, hit_budget=64,
+                    dp_frac=0.3125)  # the bench budgets of the main phase
 GENERIC_READS = 65536  # one generic mini-batch of 150 bp reads (9.8 Mbp)
 GENERIC_DP512_READS = 8192  # reads of the max_read_len 512 DP timing
 N_ORACLE, N_UNMAPPED_ORACLE = 128, 64
@@ -737,8 +771,7 @@ def phase_kernel_vote(device, card: str, n_main: int = BENCH_B,
     io_, mo = sr_options()
     mi = build_index([("chr1", genome)], io_, device)
     runs = []
-    main = ShortReadMapper(mi, mo, max_read_len=160, seed_budget=32, shift_seed_budget=16,
-                           hit_budget=64, dp_frac=0.3125, device=device)
+    main = ShortReadMapper(mi, mo, device=device, **MAIN_BUDGETS)
     codes, lens = main.native.encode_batch([r.seq for r in reads[:n_main]], 160)
     call = capture_vote(main, codes, lens)
     runs.append(vote_vs_plain(call, 2, cuda, "the main phase's batch", prev))
@@ -751,7 +784,7 @@ def phase_kernel_vote(device, card: str, n_main: int = BENCH_B,
         runs.append(vote_vs_plain(call, K, cuda, "a generic batch", prev))
     del call
     out = {"runs": runs, "card": card}
-    if built:
+    if built and built["vote_scan"][2]:  # a build taken from _build/ has no ptxas log
         out["ptxas"] = ptxas_info(built["vote_scan"][2])
         regs = next(iter(out["ptxas"].values()))["registers"]
         # the launch shape: 32 threads, the tile (3,456 bytes) and 12-byte slots
@@ -984,9 +1017,7 @@ def phase_main(device, B: int, n_timed: int, genome_len: int, card: str) -> dict
     mi = build_index([("chr1", genome)], io_, device)
     sync()
     index_s = time.perf_counter() - t0
-    mapper = ShortReadMapper(mi, mo, max_read_len=160, seed_budget=32,
-                             shift_seed_budget=16, hit_budget=64,
-                             dp_frac=0.3125, device=device)
+    mapper = ShortReadMapper(mi, mo, device=device, **MAIN_BUDGETS)
     batches = [reads[i * B:(i + 1) * B] for i in range(n_timed + 1)]
 
     # ---- the main path: counts reset just before, read just after ----
@@ -1291,28 +1322,37 @@ def phase_api(device, card: str) -> dict:
     return res
 
 
-def step_dp_check(mapper, codes, lens, fold: bool) -> dict:
-    """One batch's DP inputs, as the step hands them to ``extd2_batch``,
-    through the DP kernel and its plain version, then the DP outputs
-    through the backtrack kernel and the plain walk: all exact."""
+def dp_call_check(call, fold: bool, what: str) -> dict:
+    """One ``extd2_batch`` call of the SR/PE step, as captured, through the
+    DP kernel and its plain version at the call's shapes, then the DP
+    outputs through the backtrack kernel and the plain walk: all exact."""
     from gdiet_tpu_torch.ops import dp, dp_fold, extd2
     from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
 
-    seen = capture_calls(extd2, ["extd2_batch"], lambda: mapper.fused(codes, lens))["extd2_batch"]
-    check(len(seen) == 1 and bool(seen[0][1].get("fold")) == fold,
-          f"the step made no {'folded' if fold else 'unfolded'} DP call")
-    (q, t, ln, bd, params, L), _ = seen[0]
-    check(tuple(params) == PARAMS, f"the step's scoring {params} is not {PARAMS}")
+    (q, t, ln, bd, params, L), kw = call
+    check(bool(kw.get("fold")) == fold,
+          f"{what} made no {'folded' if fold else 'unfolded'} DP call")
+    check(tuple(params) == PARAMS, f"{what}'s scoring {params} is not {PARAMS}")
     plain = dp_fold.extd2_fold if fold else dp.extd2_batch
     got = extd2.extd2_batch(q, t, ln, bd, PARAMS, L, fold=fold)
-    what = "extd2_fold" if fold else "extd2"
+    name = "extd2_fold" if fold else "extd2"
     dp_err = check_equal(got, plain(q, t, ln, bd, PARAMS, L), DP_OUTPUTS,
-                         f"{what} on the step's DP inputs")
+                         f"{name} on {what}'s DP inputs")
     bt_err = check_equal(extd2.backtrack_band(got[1], ln, ln, bd, L, L, fold=fold),
                          backtrack_antidiag(got[1], ln, bd, L, fold=fold), BT_OUTPUTS,
-                         "backtrack_band on the step's DP outputs")
+                         f"backtrack_band on {what}'s DP outputs")
     return {"step_dp_rows": int(q.shape[0]), "step_dp_live_rows": int((ln > 0).sum()),
             "step_dp_max_abs_err": dp_err, "step_backtrack_max_abs_err": bt_err}
+
+
+def step_dp_check(mapper, codes, lens, fold: bool) -> dict:
+    """One batch's DP inputs, as the step hands them to ``extd2_batch``,
+    through ``dp_call_check``."""
+    from gdiet_tpu_torch.ops import extd2
+
+    seen = capture_calls(extd2, ["extd2_batch"], lambda: mapper.fused(codes, lens))["extd2_batch"]
+    check(len(seen) == 1, f"the step made {len(seen)} DP calls")
+    return dp_call_check(seen[0], fold, "the step")
 
 
 def per_phase(mapper, codes, lens, cuda: bool, finish) -> dict:
@@ -1838,17 +1878,43 @@ def lr_batch_phases(mapper, batch, sync) -> tuple:
     return acc, seen["extd2_batch"]
 
 
-def capture_lr_votes(mapper, reads) -> dict:
+def lr_dp_check(seen, what: str) -> dict:
+    """The smallest windowed bucket of the DP calls one LR batch made
+    (``seen``, as ``lr_batch_phases`` captures them) through the band
+    kernel and its plain version at the call's shapes, then its dirs
+    through the backtrack kernel and the plain walk: exact."""
+    from gdiet_tpu_torch.ops import dp_band, extd2
+    from gdiet_tpu_torch.pipeline import device_step
+
+    windowed = [(a, kw) for a, kw in seen if dp_band.band_shape(
+        a[5], kw["Lt"], kw["band_budget"], kw["unroll"])[2] is not None]
+    check(bool(windowed), f"{what} made no windowed DP call")
+    (q, t, ln, bd, params, L), kw = min(windowed, key=lambda c: c[0][5])
+    Lt, bb, U, tl = kw["Lt"], kw["band_budget"], kw["unroll"], kw["tlens"]
+    got = extd2.extd2_batch(q, t, ln, bd, params, L, tlens=tl, Lt=Lt, band_budget=bb, unroll=U)
+    ref = dp_band.extd2_band(q, t, ln, bd, params, L, tl, Lt, bb, U)
+    err = check_equal(got, ref, DP_OUTPUTS, f"{what}'s DP inputs")
+    bt_err = check_equal(
+        extd2.backtrack_band(got[1], ln, tl, bd, L, Lt, band_budget=bb, unroll=U),
+        device_step.backtrack_antidiag(got[1], ln, bd, L, tlens=tl, Lt=Lt,
+                                       band_budget=bb, unroll=U),
+        BT_OUTPUTS, f"{what}'s backtrack")
+    return {"Lmax": L, "Lt": Lt, "rows": int(q.shape[0]), "live_rows": int((ln > 0).sum()),
+            "max_abs_err": err, "backtrack_max_abs_err": bt_err}
+
+
+def capture_lr_votes(mapper, reads, n_rows: int = 1) -> dict:
     """The (args, kwargs) the long-read front hands to ``ops/vote.py``'s
-    ``vote_lr`` and ``vote2_pair`` for one batch."""
+    ``vote_lr`` and ``vote2_pair`` for one batch: one call of each per data
+    row (``n_rows`` under a mesh)."""
     from gdiet_tpu_torch.ops import vote
 
     lens = np.array([r.l_seq for r in reads], np.int64)
     seen = capture_calls(vote, ["vote_lr", "vote2_pair"],
                          lambda: mapper._dispatch_front(reads, lens))
-    check(len(seen["vote_lr"]) == 1 and len(seen["vote2_pair"]) == 1,
+    check(len(seen["vote_lr"]) == n_rows and len(seen["vote2_pair"]) == n_rows,
           f"the LR front made {len(seen['vote_lr'])} round-1 and "
-          f"{len(seen['vote2_pair'])} round-2 vote calls")
+          f"{len(seen['vote2_pair'])} round-2 vote calls for {n_rows} data rows")
     return seen
 
 
@@ -1922,9 +1988,7 @@ def phase_lr(device, n_timed: int, genome_len: int, card: str, B: int = LR_BATCH
 
     from gdiet_tpu_torch import config
     from gdiet_tpu_torch.index import build_index
-    from gdiet_tpu_torch.ops import dp_band, extd2
     from gdiet_tpu_torch.oracle import longread as olr
-    from gdiet_tpu_torch.pipeline import device_step
     from gdiet_tpu_torch.pipeline.longread import LongReadMapper
 
     cuda = torch.device(device).type == "cuda"
@@ -1964,31 +2028,14 @@ def phase_lr(device, n_timed: int, genome_len: int, card: str, B: int = LR_BATCH
     # ---- per-phase times of one batch (a device sync at each boundary) ----
     acc, seen = lr_batch_phases(mapper, batches[1], sync)
 
-    # ---- the kernels on the DP inputs the mapper gives them: the
-    # smallest windowed bucket of that batch ----
-    windowed = [(a, kw) for a, kw in seen if dp_band.band_shape(
-        a[5], kw["Lt"], kw["band_budget"], kw["unroll"])[2] is not None]
-    check(bool(windowed), "the LR batch made no windowed DP call")
-    (q, t, ln, bd, params, L), kw = min(windowed, key=lambda c: c[0][5])
-    Lt, bb, U, tl = kw["Lt"], kw["band_budget"], kw["unroll"], kw["tlens"]
-    got = extd2.extd2_batch(q, t, ln, bd, params, L, tlens=tl, Lt=Lt, band_budget=bb, unroll=U)
-    ref = dp_band.extd2_band(q, t, ln, bd, params, L, tl, Lt, bb, U)
-    path_err = check_equal(got, ref, DP_OUTPUTS,
-                           "the LR path's DP inputs")
-    path_bt_err = check_equal(
-        extd2.backtrack_band(got[1], ln, tl, bd, L, Lt, band_budget=bb, unroll=U),
-        device_step.backtrack_antidiag(got[1], ln, bd, L, tlens=tl, Lt=Lt,
-                                       band_budget=bb, unroll=U),
-        BT_OUTPUTS, "the LR path's backtrack")
+    # ---- the kernels on the DP inputs the mapper gives them ----
+    step_dp = lr_dp_check(seen, "the LR batch")
     res = {"reads": len(reads), "timed_reads": B * n_timed, "batch": B,
            "reads_per_s": B * n_timed / wall, "timed_wall_s": wall,
            "fallback_reads": mapper.stats["fallback_reads"],
            "host_dp_segments": mapper.stats["host_dp_segments"],
            "mapped_reads": n_mapped, "oracle_reads_equal": LR_ORACLE, **counts,
-           "phase_ms": acc, "dp_calls_in_batch": len(seen),
-           "step_dp": {"Lmax": L, "Lt": Lt, "rows": int(q.shape[0]),
-                       "live_rows": int((ln > 0).sum()), "max_abs_err": path_err,
-                       "backtrack_max_abs_err": path_bt_err},
+           "phase_ms": acc, "dp_calls_in_batch": len(seen), "step_dp": step_dp,
            "card": card}
     say("lr", **res)
     return res, capture_lr_votes(mapper, batches[1])
@@ -2109,6 +2156,326 @@ def phase_ont(device, n_timed: int, genome_len: int, card: str, B: int = ONT_BAT
     return res
 
 
+# ---------------------------------------------------------------------------
+# multi-device mapping (parallel/dist.py) and the -v 4 profile
+# ---------------------------------------------------------------------------
+MESH_SHAPES = ((2, 2), (1, 4), (4, 1))  # (data, ref)
+
+
+def compare_meshed(single: tuple, meshed: tuple, K: int, what: str) -> int:
+    """A meshed step's (meta, ops) against the single-device step's on the
+    same batch: every meta column but ``opsrow`` exact; ``opsrow``'s kind
+    (>= 0 a compacted op row, -1 no CIGAR, -2 all-M) equal, and the op row
+    each points to equal byte for byte (the compacted rows are numbered
+    per data row under a mesh, so the indices differ). Returns the op rows
+    compared."""
+    (meta1, ops1), (meta2, ops2) = single, meshed
+    col = 3 + 11 * K  # opsrow (device_step.PACK_BK)
+    check(meta1.shape == meta2.shape, f"{what}: meta {meta2.shape}, expected {meta1.shape}")
+    diff = int((meta1[:, :col] != meta2[:, :col]).sum())
+    check(diff == 0, f"{what}: {diff} meta entries differ from the single-device step's")
+    r1, r2 = meta1[:, col:].ravel(), meta2[:, col:].ravel()
+    check(np.array_equal(np.minimum(r1, 0), np.minimum(r2, 0)),
+          f"{what}: the opsrow kinds differ from the single-device step's")
+    live = r1 >= 0
+    check(np.array_equal(ops1[r1[live]], ops2[r2[live]]),
+          f"{what}: op rows differ from the single-device step's")
+    return int(live.sum())
+
+
+def step_ms(fused, codes, lens, n: int = 3) -> float:
+    """Median host ms of a step call ending in a sync of the mapper's
+    card(s), after one warm-up call."""
+    ms = []
+    for _ in range(n + 1):
+        fused.sync()
+        t0 = time.perf_counter()
+        fused(codes, lens)
+        fused.sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms[1:]))
+
+
+def phase_mesh(device, B: int, card: str, shapes=MESH_SHAPES, distinct: bool = False,
+               genome_len: int = GENOME_LEN) -> dict:
+    """The main phase's workload (one batch of B reads, the bench budgets,
+    the 2 Mbp genome) through ``ShortReadMapper(mesh=...)`` on each mesh
+    shape: a virtual mesh whose cells are all ``device``, or with
+    ``distinct`` one card per cell. Per mesh, counts reset just before and
+    read just after the meshed path (one step call and ``map_stream_sam``):
+    the vote, DP and backtrack kernels launched and no plain version.
+    Checks, exact against the single-device mapper on the same batch: meta
+    and ops (``compare_meshed``), SAM. Each data row's calls at its shapes,
+    exact against the plain versions: the DP and backtrack kernels on its
+    DP inputs (``dp_call_check``), vote_scan.cu on its vote stream (the
+    row's merged hits, M = 2(64 n_ref + 1)). The step's ms beside the
+    single-device step's: on one card this is the sharded path's overhead,
+    not scaling."""
+    from gdiet_tpu_torch.index import build_index
+    from gdiet_tpu_torch.ops import extd2, vote
+    from gdiet_tpu_torch.parallel.dist import make_mesh
+    from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
+
+    cuda = torch_cuda(device)
+    genome, _, _, reads = bench_workload(B, genome_len)
+    io_, mo = sr_options()
+    mi = build_index([("chr1", genome)], io_, device)
+    single = ShortReadMapper(mi, mo, device=device, **MAIN_BUDGETS)
+    codes, lens = single.native.encode_batch([r.seq for r in reads], 160)
+    want = single.fused.fetch(single.fused(codes, lens), B)
+    sam1 = _map_sam(single, reads)
+    single_ms = step_ms(single.fused, codes, lens)
+    K = single.fused.cfg.K
+    runs = []
+    for n_data, n_ref in shapes:
+        cells = None if distinct else [device] * (n_data * n_ref)
+        mapper = ShortReadMapper(mi, mo, mesh=make_mesh(n_data, n_ref, cells), **MAIN_BUDGETS)
+        what = f"the ({n_data}, {n_ref}) mesh"
+        # ---- the meshed path: counts reset just before, read just after ----
+        sr_counts_reset()
+        got = mapper.fused.fetch(mapper.fused(codes, lens), B)
+        sam2 = _map_sam(mapper, reads)
+        counts = sr_counts(what, cuda)
+        rows = compare_meshed(want, got, K, what)
+        same = sum(a == b for a, b in zip(sam1, sam2))
+        check(sam2 == sam1, f"{what}: {same}/{len(sam1)} SAM records equal the single "
+              f"device's ({len(sam2)} produced)")
+        # ---- each data row's kernel calls against their plain versions ----
+        dp_calls = capture_calls(extd2, ["extd2_batch"],
+                                 lambda: mapper.fused(codes, lens))["extd2_batch"]
+        check(len(dp_calls) == n_data, f"{what} made {len(dp_calls)} DP calls for {n_data} rows")
+        dps = [dp_call_check(c, False, f"{what}'s data row {d}") for d, c in enumerate(dp_calls)]
+        del dp_calls
+        calls = capture_calls(vote, ["vote_scan"], lambda: mapper.fused(codes, lens))["vote_scan"]
+        check(len(calls) == n_data, f"{what} made {len(calls)} vote calls for {n_data} rows")
+        M = 2 * (calls[0][0][0].shape[1] + 1)
+        check(M == 2 * (64 * n_ref + 1), f"{what}: vote stream M = {M}")
+        kvs = [vote_vs_plain(c, K, cuda, f"{what}'s data row {d}") for d, c in enumerate(calls)]
+        runs.append({"mesh": [n_data, n_ref], "vote_M": M, **counts,
+                     "vote_calls_per_batch": len(calls), "ops_rows_compared": rows,
+                     "sam_records": len(sam2), "step_ms": step_ms(mapper.fused, codes, lens),
+                     "single_step_ms": single_ms,
+                     "dp_rows": [r["step_dp_rows"] for r in dps],
+                     "dp_max_abs_err": max(r["step_dp_max_abs_err"] for r in dps),
+                     "backtrack_max_abs_err": max(r["step_backtrack_max_abs_err"] for r in dps),
+                     "vote_max_abs_err": max(kv["max_abs_err"] for kv in kvs),
+                     "vote": {k: kvs[0].get(k) for k in ("B", "M", "K", "kernel_ms", "device_ms",
+                                                         "plain_ms", "bound_ms", "bound_by")}})
+        del mapper, calls
+    res = {"reads": B, "runs": runs, "identical": True,
+           "cells": "distinct cards" if distinct else f"every cell on {device}",
+           "note": "one card's virtual mesh: step_ms is the sharded path's overhead "
+                   "(every shard probed, the merge, the data rows in turn), not scaling"
+           if not distinct else "distinct cards", "card": card}
+    say("mesh_cards" if distinct else "mesh", **res)
+    return res
+
+
+def phase_mesh_lr(device, card: str, B: int = LR_BATCH, genome_len: int = GENOME_LEN) -> dict:
+    """One HiFi batch (the lr phase's recipe and budgets) through a (2, 2)
+    virtual mesh of ``device``: the front's packed meta equal to the
+    single-device front's, and the SAM of ``map_batch`` equal to the
+    single-device run's. Counts reset just before and read just after the
+    meshed run: the band (or full-width), backtrack and vote_lr kernels
+    launched and no plain version. The meshed batch's kernel calls at
+    their shapes, exact against their plain versions: both vote_lr.cu
+    entry points on each data row's merged stream (``vote_lr_vs_plain``),
+    the band and backtrack kernels on its smallest windowed DP bucket
+    (``lr_dp_check``)."""
+    import torch
+
+    from gdiet_tpu_torch import config
+    from gdiet_tpu_torch.index import build_index
+    from gdiet_tpu_torch.ops import extd2
+    from gdiet_tpu_torch.parallel.dist import make_mesh
+    from gdiet_tpu_torch.pipeline.longread import LongReadMapper
+
+    cuda = torch_cuda(device)
+    genome, reads = lr_workload(B, genome_len)
+    io_, mo = config.options_for(
+        "map-hifi", variant="lr", pattern="10", k=19, w=19, max_seeds=0.2, bw=500,
+        vt_dis=650, vt_nb_loc=5, vt_df1=0.0106, vt_df2=0.2, min_dp_max=200,
+        vt_cov=0.04, vt_f=0.04)
+    mo.flag |= config.MM_F_OUT_SAM | config.MM_F_CIGAR  # -a
+    mi = build_index([("chr1", genome)], io_, device)
+    kw = dict(max_read_len=4096, seed_budget=512, shift_seed_budget=128, hit_budget=2048,
+              vote_budget=512)
+    single = LongReadMapper(mi, mo, device=device, **kw)
+    meshed = LongReadMapper(mi, mo, mesh=make_mesh(2, 2, [device] * 4), **kw)
+    lens = np.array([r.l_seq for r in reads], np.int64)
+    front = [m._dispatch_front(reads, lens)[1].cpu().numpy() for m in (single, meshed)]
+    check(np.array_equal(*front), "the (2, 2) LR mesh's front meta differs from the single "
+          "device's")
+
+    def sam(mapper, results):
+        return [l for rec, rg in zip(reads, results) for l in mapper.regs_to_sam_lines(rec, rg)]
+
+    sam1 = sam(single, single.map_batch(reads))
+    # ---- the meshed LR path: counts reset just before, read just after ----
+    lr_counts_reset()
+    t0 = time.perf_counter()
+    results = meshed.map_batch(reads)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = lr_counts("the (2, 2) LR mesh", cuda)
+    sam2 = sam(meshed, results)
+    same = sum(a == b for a, b in zip(sam1, sam2))
+    check(sam2 == sam1, f"the (2, 2) LR mesh: {same}/{len(sam1)} SAM records equal")
+    n_mapped = sum(bool(r) for r in results)
+    check(n_mapped >= 0.9 * B, f"only {n_mapped}/{B} reads mapped on the LR mesh")
+
+    # ---- the meshed batch's kernel calls against their plain versions ----
+    votes = capture_lr_votes(meshed, reads, n_rows=2)
+    kvl = [vote_lr_vs_plain({n: [votes[n][d]] for n in votes}, cuda,
+                            f"the (2, 2) LR mesh's data row {d}") for d in range(2)]
+    del votes
+    seen = capture_calls(extd2, ["extd2_batch"], lambda: meshed.map_batch(reads))["extd2_batch"]
+    step_dp = lr_dp_check(seen, "the (2, 2) LR mesh's batch")
+    del seen
+    res = {"reads": B, "mesh": [2, 2], "mapped_reads": n_mapped, "sam_records": len(sam2),
+           "identical": True, "batch_ms": wall * 1e3, **counts, "step_dp": step_dp,
+           "vote_lr": [{"B": r["B"], "M": r["M"], "K": r["K"],
+                        **{x: {k: r[x][k] for k in ("kernel_ms", "plain_ms", "max_abs_err")}
+                           for x in ("round1", "round2")}} for r in kvl],
+           "vote_lr_max_abs_err": max(r[x]["max_abs_err"] for r in kvl
+                                      for x in ("round1", "round2")),
+           "note": "one card's virtual mesh: batch_ms is not a scaling figure", "card": card}
+    say("mesh_lr", **res)
+    return res
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+MULTIHOST_WORKER = r"""
+import json, sys
+sys.path.insert(0, ".")
+import chip_smoke
+from gdiet_tpu_torch import cli
+chip_smoke.sr_counts_reset()
+rc = cli.main(sys.argv[1:])
+print("COUNTS " + json.dumps(chip_smoke.sr_counts("a joined process", "cuda" in sys.argv)))
+sys.exit(rc)
+"""
+
+
+def phase_multihost(card: str, device: str = "cuda") -> dict:
+    """Two processes of the port's CLI joined through ``GDIET_COORDINATOR``
+    (gloo, a free local port), both on ``device``: each maps half of
+    ``tests/data/reads.fq`` with the launch counts set to 0 just before
+    and read just after (on the card: the vote, DP and backtrack kernels
+    launched, no plain version). Both exit 0 and log a group of 2; their
+    records concatenated equal ``golden.sam``."""
+    import os
+    import tempfile
+
+    from gdiet_tpu_torch.testing import sam_body
+
+    lines = (DATA / "reads.fq").read_text().splitlines()
+    recs = [lines[i:i + 4] for i in range(0, len(lines), 4)]
+    half = len(recs) // 2
+    args = [*PE_ARGS[:-2], "-v", "3"]
+    coordinator = f"127.0.0.1:{free_port()}"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        procs, outs = [], []
+        t0 = time.perf_counter()
+        try:
+            for p, shard in enumerate((recs[:half], recs[half:])):
+                fq, out = tmp / f"shard{p}.fq", tmp / f"out{p}.sam"
+                fq.write_text("\n".join(l for rec in shard for l in rec) + "\n")
+                outs.append(out)
+                env = {**os.environ, "GDIET_COORDINATOR": coordinator,
+                       "GDIET_NUM_PROCESSES": "2", "GDIET_PROCESS_ID": str(p)}
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", MULTIHOST_WORKER, "--device", device, *args,
+                     "-o", str(out), str(DATA / "ref.fa"), str(fq)],
+                    cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True))
+            outs_errs = [pr.communicate(timeout=600) for pr in procs]
+        finally:
+            for pr in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait()
+        wall = time.perf_counter() - t0
+        counts = []
+        for p, (pr, (so, err)) in enumerate(zip(procs, outs_errs)):
+            check(pr.returncode == 0, f"process {p} of the join failed:\n{err[-3000:]}")
+            check(f"joined torch.distributed (gloo) as process {p} of 2" in err,
+                  f"process {p} logged no group of 2:\n{err[-3000:]}")
+            line = [l for l in so.splitlines() if l.startswith("COUNTS ")]
+            check(bool(line), f"process {p} reported no launch counts")
+            counts.append(json.loads(line[-1][7:]))
+        got = [l for out in outs for l in sam_body(out)]
+    gold = sam_body(DATA / "golden.sam")
+    same = sum(a == b for a, b in zip(got, gold))
+    check(got == gold, f"the joined processes' records: {same}/{len(gold)} equal golden.sam")
+    res = {"processes": 2, "world_size": 2, "records": len(got), "identical": True,
+           "wall_s": wall, "counts": counts, "device": device, "card": card}
+    say("multihost", **res)
+    return res
+
+
+PROFILE_STAGES = ("pattern alignment", "seeding", "voting", "sequence alignment")
+
+
+def phase_profile(device, B: int, card: str, genome_len: int = GENOME_LEN) -> dict:
+    """The SE CLI with ``-v 4`` on the main phase's reads (one batch of B,
+    the 2 Mbp genome): stderr has the four five-stage ``[PROFILING]`` rows
+    (``staged_times``' re-run estimates), pattern, seeding and sequence
+    alignment each > 0 ns and voting >= 0 (the difference of two cuts'
+    re-run minimums, within their timing noise), and the SAM equals the
+    same run's without ``-v 4``."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+
+    from gdiet_tpu_torch import cli
+    from gdiet_tpu_torch.testing import sam_body
+    from gdiet_tpu_torch.utils.profile import PROFILE
+
+    genome, _, _, reads = bench_workload(B, genome_len)
+    args = PE_ARGS[:-2]  # without "-v 1"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        fa, fq = write_fastx(tmp, genome, reads)
+        PROFILE.reset()
+        err = io.StringIO()
+        # the -v 4 path: counts reset just before, read just after
+        sr_counts_reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            check(cli.main(["--device", device, *args, "-v", "4", "-o", str(tmp / "v4.sam"),
+                            str(fa), str(fq)]) == 0, "the -v 4 CLI run failed")
+        wall4 = time.perf_counter() - t0
+        counts = sr_counts("the -v 4 run", torch_cuda(device))
+        t0 = time.perf_counter()
+        check(cli.main(["--device", device, *args, "-v", "1", "-o", str(tmp / "v1.sam"),
+                        str(fa), str(fq)]) == 0, "the CLI run without -v 4 failed")
+        wall1 = time.perf_counter() - t0
+        check(sam_body(tmp / "v4.sam") == sam_body(tmp / "v1.sam"),
+              "the -v 4 run's SAM differs from the run without it")
+    rows = {name: int(ns) for name, ns in
+            re.findall(r"\[PROFILING\] (.+?) time: (\d+) ns", err.getvalue())}
+    for stage in PROFILE_STAGES:
+        check(stage in rows, f"-v 4 printed no {stage!r} row: {rows}")
+        check(stage == "voting" or rows[stage] > 0, f"-v 4 printed a 0 ns {stage!r} row: {rows}")
+    res = {"reads": B, "stage_ns": {s: rows[s] for s in PROFILE_STAGES},
+           "other_rows_ns": {k: v for k, v in rows.items() if k not in PROFILE_STAGES},
+           "wall_s_v4": wall4, "wall_s_v1": wall1, "sam_identical": True, **counts,
+           "card": card}
+    say("profile", **res)
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2141,6 +2508,15 @@ def main(argv=None) -> int:
     phase_golden("cuda")
     phase_api("cuda", card)
     m = phase_main("cuda", BENCH_B, N_TIMED, GENOME_LEN, card)
+    mesh = phase_mesh("cuda", BENCH_B, card)
+    if torch.cuda.device_count() >= 2:
+        phase_mesh("cuda", BENCH_B, card, distinct=True,
+                   shapes=((2, 2),) if torch.cuda.device_count() >= 4 else ((2, 1), (1, 2)))
+    else:
+        say("mesh_cards", run=False, why=f"{torch.cuda.device_count()} CUDA device visible: "
+            "a mesh of distinct cards needs 2 or more (neither a pass nor a failure)")
+    phase_multihost(card)
+    phase_profile("cuda", BENCH_B, card)
     phase_generic("cuda", GENERIC_READS, card)
     phase_golden_pe(card)
     pe = phase_pe("cuda", PE_PAIRS, PE_TIMED, GENOME_LEN, card)
@@ -2149,6 +2525,7 @@ def main(argv=None) -> int:
     lr, lr_votes = phase_lr("cuda", LR_TIMED, GENOME_LEN, card)
     kvl = phase_kernel_vote_lr("cuda", card, lr_votes, built=built)
     del lr_votes
+    mesh_lr = phase_mesh_lr("cuda", card)
     ont = phase_ont("cuda", ONT_TIMED, GENOME_LEN, card)
     src = "gdiet_tpu_torch/csrc/"
     hifi = kb["runs"][0]  # band 500: the HiFi workload's budget
@@ -2159,15 +2536,17 @@ def main(argv=None) -> int:
         {"name": "extd2", "route": "cuda", "source": src + "extd2.cu",
          "replaces": "gdiet_tpu/ops/dp_pallas.py:170",
          "launches": m["extd2_launches"],
-         "max_abs_err": max(k["max_abs_err"], m["step_dp_max_abs_err"],
-                            kb["full_width_bucket"]["max_abs_err"]),
+         "max_abs_err": max([k["max_abs_err"], m["step_dp_max_abs_err"],
+                             kb["full_width_bucket"]["max_abs_err"]]
+                            + [r["dp_max_abs_err"] for r in mesh["runs"]]),
          "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
          **{x: k[x] for x in bound_keys}, "library_ms": None},
         {"name": "extd2_band", "route": "cuda", "source": src + "extd2_band.cu",
          "replaces": "gdiet_tpu/ops/dp_pallas.py:170",
          "launches": lr["band_launches"],
          "max_abs_err": max([r["max_abs_err"] for r in kb["runs"]]
-                            + [lr["step_dp"]["max_abs_err"]]),
+                            + [lr["step_dp"]["max_abs_err"],
+                               mesh_lr["step_dp"]["max_abs_err"]]),
          "ms": hifi["kernel_ms"], "plain_ms": hifi["plain_ms"],
          **{x: hifi[x] for x in bound_keys}, "library_ms": None},
         {"name": "extd2_fold", "route": "cuda", "source": src + "extd2_fold.cu",
@@ -2186,13 +2565,16 @@ def main(argv=None) -> int:
                                kf_pe["backtrack"]["max_abs_err"],
                                m["step_backtrack_max_abs_err"],
                                pe["step_backtrack_max_abs_err"],
-                               lr["step_dp"]["backtrack_max_abs_err"]]),
+                               lr["step_dp"]["backtrack_max_abs_err"],
+                               mesh_lr["step_dp"]["backtrack_max_abs_err"]]
+                            + [r["backtrack_max_abs_err"] for r in mesh["runs"]]),
          "ms": k["backtrack"]["kernel_ms"], "plain_ms": k["backtrack"]["plain_ms"],
          **{x: k["backtrack"][x] for x in bound_keys}, "library_ms": None},
         {"name": "vote_scan", "route": "cuda", "source": src + "vote_scan.cu",
          "replaces": "gdiet_tpu/pipeline/device_step.py:54",
          "launches": m["vote_launches"],
-         "max_abs_err": max(r["max_abs_err"] for r in kv["runs"]),
+         "max_abs_err": max([r["max_abs_err"] for r in kv["runs"]]
+                            + [r["vote_max_abs_err"] for r in mesh["runs"]]),
          "ms": kv_main["device_ms"] or kv_main["kernel_ms"], "plain_ms": kv_main["plain_ms"],
          **{x: kv_main[x] for x in bound_keys}, "library_ms": None},
         # both entry points per front (round 1, then both round-2 windows);
@@ -2200,8 +2582,9 @@ def main(argv=None) -> int:
         {"name": "vote_lr", "route": "cuda", "source": src + "vote_lr.cu",
          "replaces": "gdiet_tpu/pipeline/lr_step.py:41",
          "launches": lr["vote_lr_launches"],
-         "max_abs_err": max(r[x]["max_abs_err"] for r in (kvl, ont["vote"])
-                            for x in ("round1", "round2")),
+         "max_abs_err": max([r[x]["max_abs_err"] for r in (kvl, ont["vote"])
+                             for x in ("round1", "round2")]
+                            + [mesh_lr["vote_lr_max_abs_err"]]),
          "ms": sum(r["device_ms"] or r["kernel_ms"] for r in (kvl1, kvl2)),
          "plain_ms": kvl1["plain_ms"] + kvl2["plain_ms"],
          "bound_ms": kvl1["bound_ms"] + kvl2["bound_ms"],

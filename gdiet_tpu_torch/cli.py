@@ -318,7 +318,8 @@ def _apply(name: str, arg, io, mo, st) -> int | None:
         elif arg in ("no", "n"):
             mo.flag &= ~cfg.MM_F_FRAG_MODE
     elif name == "mesh":
-        # --mesh DATAxREF; multi-device mapping raises in runtime.run_mapping
+        # --mesh DATAxREF: reads over DATA rows, the index over REF key
+        # ranges (runtime.run_mapping, parallel/dist.py)
         parts = arg.lower().split("x")
         mo.mesh_shape = (int(parts[0]), int(parts[1]) if len(parts) > 1 else 1)
     elif name == "split-reads":

@@ -38,6 +38,23 @@ def lookup_vals(starts) -> np.ndarray:
     return (s[:-1] << np.uint64(24)) | cnt
 
 
+def bucket_table(keys: np.ndarray, k: int, max_bits: int = 22):
+    """Direct-address bucket index over the sorted key array
+    (gdiet_tpu/index/build.py:285-303): bucket j, the top ``b`` bits of the
+    2k-bit hash, covers the keys in [table[j], table[j+1]). Returns (table
+    [2^b+1] int64, shift, iters), ``iters`` the binary-search depth that
+    covers the largest bucket."""
+    nk = len(keys)
+    b = max(8, int(np.ceil(np.log2(nk))) + 2) if nk else 8
+    b = min(max_bits, 2 * k, b)
+    shift = max(2 * k - b, 0)
+    bounds = np.arange((1 << b) + 1, dtype=np.uint64) << np.uint64(shift)
+    tbl = np.searchsorted(keys, bounds).astype(np.int64)
+    maxb = int(np.max(np.diff(tbl))) if nk else 0
+    iters = max(1, int(np.ceil(np.log2(maxb + 1))) + 1)
+    return tbl, shift, iters
+
+
 def pack_ref_codes(codes: np.ndarray):
     """2-bit pack of nt4 reference codes plus a 1-bit N mask (None when the
     genome has no N), as gdiet_tpu/pipeline/device_step.py:1080 packs them."""

@@ -30,13 +30,20 @@ for every dirs layout: full width and folded (this step) and the banded
 window of the long-read buckets (``ops/dp_band.py``). ``collect_hits`` is
 the long-read front's too (``pipeline/lr_step.py``).
 
-Not ported yet (ROADMAP): the sharded ``ref_axis`` path, the bisect probe,
-``fuse_out_device`` (a TPU-link transfer trick) and the five-stage re-run
-profiler.
+Under a mesh (``parallel/dist.py``) the step runs once per data row with
+that row's key-range shards of the index in ``tables["shards"]``:
+``collect_hits`` probes every shard with ``bisect_lookup`` (the
+single-device mappers keep the cuckoo probe), sums the counts and merges
+the shards' hit streams (``merge_hits``), the ``ref_axis`` branch of
+``gdiet_tpu``'s step. ``upto`` cuts the step at the stage boundaries of
+the five-stage profile (``staged_times``, ``-v 4``).
+
+Not ported (ROADMAP): ``fuse_out_device``, a TPU-link transfer trick.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, replace as dataclass_replace
 
 import numpy as np
@@ -91,6 +98,12 @@ class StepConfig:
     dp_frac: float = 1.0
     dp_fold: bool = False  # folded DP layout (TorchFusedMapper resolves it)
     vote_budget: int = 0  # >0: the LR front compacts the vote stream to it
+    # "cuckoo": the merged-row cuckoo table of the whole index (the
+    # single-device mappers); "bisect": a bucketed binary search over one
+    # key-range shard (the sharded paths, parallel/dist.py sets it)
+    probe: str = "cuckoo"
+    bucket_shift: int = 0  # the shard bucket of a key: its top bits
+    bucket_iters: int = 30  # binary-search depth within a bucket
 
     @classmethod
     def from_options(cls, mi, mo, mid_occ: int, Lmax: int, S: int, S2: int,
@@ -154,6 +167,23 @@ def _cummax(x, dim=1):
 
 
 # ---------------------------------------------------------------------------
+# the collectives of a mesh's ref axis (parallel/dist.py)
+# ---------------------------------------------------------------------------
+def psum_ref(xs: list, device) -> torch.Tensor:
+    """The ref shards' tensors summed on ``device`` (a data row's lead)."""
+    out = xs[0].to(device)
+    for x in xs[1:]:
+        out = out + x.to(device)
+    return out
+
+
+def all_gather_ref(xs: list, device) -> torch.Tensor:
+    """The ref shards' [B, n] tensors concatenated along dim 1 in ref
+    order, on ``device``."""
+    return torch.cat([x.to(device) for x in xs], dim=1)
+
+
+# ---------------------------------------------------------------------------
 # phases 1-3: sketch, lookup, seed selection, hit expansion
 # ---------------------------------------------------------------------------
 def cuckoo_lookup(q, table, cfg: StepConfig):
@@ -174,6 +204,34 @@ def cuckoo_lookup(q, table, cfg: StepConfig):
     s = srl(v, 24)
     c = v & 0xFFFFFF
     return torch.where(found, s, 0), torch.where(found, c, 0)
+
+
+def bisect_lookup(q, shard: dict, cfg: StepConfig):
+    """mm_idx_get as a bucketed binary search over one key-range shard
+    (device_step.py:838-860): the bucket of ``q``'s top bits bounds the
+    search, then ``cfg.bucket_iters`` halvings. ``shard`` holds the sorted
+    ``keys`` (padded with U64_MAX), their packed ``vals`` (start << 24 |
+    count) and the ``buckets`` table; keys compare unsigned. Returns
+    (start, count) int64, 0 where the key is absent."""
+    keys, vals, buckets = shard["keys"], shard["vals"], shard["buckets"]
+    nk = keys.shape[0]
+    if nk == 0:
+        return torch.zeros_like(q), torch.zeros_like(q)
+    nb = buckets.shape[0] - 1
+    j = torch.clamp(srl(q, cfg.bucket_shift), 0, max(nb - 1, 0))
+    lo, hi = buckets[j], buckets[j + 1]
+    qo = u64.ordered(q)
+    for _ in range(cfg.bucket_iters):
+        mid = (lo + hi) >> 1
+        km = u64.ordered(keys[torch.clamp(mid, 0, nk - 1)])
+        open_ = lo < hi
+        go_r = open_ & (km < qo)
+        lo = torch.where(go_r, mid + 1, lo)
+        hi = torch.where(open_ & ~go_r, mid, hi)
+    at = torch.clamp(lo, 0, nk - 1)
+    found = (lo < nk) & (keys[at] == q)
+    v = vals[at]
+    return torch.where(found, srl(v, 24), 0), torch.where(found, v & 0xFFFFFF, 0)
 
 
 def _seed_select(cnts, qpos, seed_ok, lens, cfg: StepConfig):
@@ -253,22 +311,44 @@ def _expand_hits(starts, counts, qpos, qstrand, positions, extracted, A: int):
     return (*out, total)
 
 
-def collect_hits(codes, lens, tables: dict, cfg: StepConfig):
+def collect_hits(codes, lens, tables: dict, cfg: StepConfig, upto: str | None = None):
     """Device front of mm_map_frag (phases 1-3, device_step.py:771-1043):
     the merged shift/sketch branch for an absolute ``-i``, shift inference
     then the query sketch for a fractional one.
 
+    ``tables["shards"]``, where present, holds the key-range shards of a
+    sharded index (``parallel/dist.py``), one dict per ref device: each
+    probe runs on every shard on its own device, the global occurrence
+    counts are their ``psum_ref`` on ``codes``' device, each shard expands
+    its own hits against its own positions and the strand streams are
+    merged (``all_gather_ref`` in ref order, then a stable sort by key) to
+    A * n_ref columns. Without it ``tables`` is the one whole index.
+
     Returns (fallback, shift, extracted, mv_n, capped, fk, fq, fok, rk, rq,
-    rok)."""
+    rok); ``upto="pattern"`` (the five-stage profile's first cut) returns
+    (fallback, shift) after the shift inference."""
     B = codes.shape[0]
     dev = codes.device
     W = len(cfg.pattern)
     k, w = cfg.k, cfg.w
     maps, pref = tables["maps"], tables["pref"]
-    table = tables["cuckoo"]
+    shards = tables.get("shards") or [tables]
     rid0 = torch.zeros((B,), dtype=I64, device=dev)
     Dmax = maps.shape[1]
     fallback = torch.zeros((B,), dtype=torch.bool, device=dev)
+
+    def probe(q):
+        """(start, local count) per shard, each on its shard's device."""
+        out = []
+        for sh in shards:
+            qs = q.to(sh["positions"].device)
+            out.append(cuckoo_lookup(qs, sh["cuckoo"], cfg) if cfg.probe == "cuckoo"
+                       else bisect_lookup(qs, sh, cfg))
+        return out
+
+    def counts(q):
+        """Global occurrence counts, on ``codes``' device."""
+        return psum_ref([c for _, c in probe(q)], dev)
 
     def sketch_shift(s: int, dlen, cap: int):
         return sketch_emit(codes[:, maps[s]], dlen, maps[s].expand(B, Dmax), rid0,
@@ -290,7 +370,7 @@ def collect_hits(codes, lens, tables: dict, cfg: StepConfig):
             effs.append(eff)
             per_shift.append((xs_s, ys_s, n_s))
         qcat = srl(torch.cat([t[0][:, :cap_cols] for t in per_shift], dim=1), 8)
-        _, cnt_cat = cuckoo_lookup(qcat, table, cfg)
+        cnt_cat = counts(qcat)
         col = torch.arange(cap_cols, dtype=I64, device=dev)[None, :]
         nb_hits = torch.stack([
             (cnt_cat[:, s * cap_cols:(s + 1) * cap_cols] * (col < effs[s][:, None])).sum(1)
@@ -326,7 +406,7 @@ def collect_hits(codes, lens, tables: dict, cfg: StepConfig):
                 eff = torch.where(unlimited, n, torch.minimum(n, cap_vec))
                 over = (n >= cfg.S2) & (unlimited | (cap_vec > cfg.S2))
             fallback = fallback | over
-            _, cnts = cuckoo_lookup(srl(xs_s, 8), table, cfg)
+            cnts = counts(srl(xs_s, 8))
             nb_hits.append((cnts * (col < eff[:, None])).sum(1))
         shift = torch.argmax(torch.stack(nb_hits), dim=0)
 
@@ -337,6 +417,8 @@ def collect_hits(codes, lens, tables: dict, cfg: StepConfig):
             rid0, k, w, cfg.S, final_flush_ge=True)
     if cfg.S < cfg.max_nb_seeds:
         fallback = fallback | (n3 > cfg.S)
+    if upto == "pattern":
+        return fallback, shift
 
     cap_col = min(cfg.max_nb_seeds, cfg.S) - 1
     capped = n3 >= cfg.max_nb_seeds
@@ -359,18 +441,42 @@ def collect_hits(codes, lens, tables: dict, cfg: StepConfig):
         fallback = fallback | ((mv_n > cfg.mid_occ) & ~noop)
 
     # ---- phase 3: seed lookup + hit expansion ----
-    starts, cnts = cuckoo_lookup(torch.where(seed_ok, srl(xs, 8), U64_MAX), table, cfg)
+    looked = probe(torch.where(seed_ok, srl(xs, 8), U64_MAX))
+    cnts = psum_ref([c for _, c in looked], dev)
     qpos = ((ys & U32) >> 1).to(I32)
     if cfg.occ_dist > 0 and cfg.max_max_occ > cfg.mid_occ:
         kept = _seed_select(cnts, qpos, seed_ok, lens, cfg)
     else:
         kept = seed_ok & (cnts > 0) & (cnts <= cfg.mid_occ)
-    kcounts = torch.where(kept, cnts, 0)
-    fallback = fallback | (kcounts.sum(1) > cfg.A)
+    # the budget test takes the global counts; each shard expands its own
+    # (key-range sharding keeps a key's occurrences on one shard, so a
+    # shard's local count is the global one or 0)
+    fallback = fallback | (torch.where(kept, cnts, 0).sum(1) > cfg.A)
     qstrand = (ys & 1).to(I32)
-    fk, fq, fok, rk, rq, rok, _ = _expand_hits(
-        starts, kcounts, qpos, qstrand, tables["positions"], extracted, cfg.A)
+    halves = []
+    for (starts, cnts_local), sh in zip(looked, shards):
+        sdev = starts.device
+        halves.append(_expand_hits(
+            starts, torch.where(kept.to(sdev), cnts_local, 0), qpos.to(sdev),
+            qstrand.to(sdev), sh["positions"], extracted.to(sdev), cfg.A)[:6])
+    if len(halves) == 1:
+        fk, fq, fok, rk, rq, rok = halves[0]
+    else:
+        fk, fq, fok = merge_hits(*(all_gather_ref([h[i] for h in halves], dev)
+                                   for i in (0, 1, 2)))
+        rk, rq, rok = merge_hits(*(all_gather_ref([h[i] for h in halves], dev)
+                                   for i in (3, 4, 5)))
     return fallback, shift, extracted, mv_n, capped, fk, fq, fok, rk, rq, rok
+
+
+def merge_hits(keys, qpos, valid):
+    """One strand's gathered shard streams [B, A * n_ref] sorted by key,
+    unsigned and stable (device_step.py:1029-1043): equal keys of two
+    shards stay in shard order, invalid hits (key U64_MAX) sort last, so
+    the stream stays valid-first."""
+    perm = u64.argsort_u64(keys, dim=1)
+    return (torch.gather(keys, 1, perm), torch.gather(qpos, 1, perm),
+            torch.gather(valid, 1, perm))
 
 
 # ---------------------------------------------------------------------------
@@ -606,8 +712,10 @@ def fused_map_step(codes, lens, tables: dict, cfg: StepConfig,
     """The fused forward step (device_step.py:1142-1393).
 
     codes [B, Lmax] u8 (255 pad), lens [B] i64, ``tables`` from
-    ``TorchFusedMapper``. ``upto="seed"`` returns the sorted hit streams
-    (fk, fq, fok, rk, rq, rok), ``upto="vote"`` the vote dict, otherwise
+    ``TorchFusedMapper`` (or one data row's of ``parallel.dist``'s sharded
+    step). ``upto`` cuts the step for the five-stage profile:
+    ``"pattern"`` returns (fallback, shift), ``"seed"`` the sorted hit
+    streams (fk, fq, fok, rk, rq, rok), ``"vote"`` the vote dict; otherwise
     {"meta": [B, 3+12K] i32, "ops": [N2, OB] u8}. ``mark(name)``, when
     given, is called at each phase boundary (front, vote, windows, dp,
     backtrack) for per-phase device timing."""
@@ -618,6 +726,8 @@ def fused_map_step(codes, lens, tables: dict, cfg: StepConfig,
     B = codes.shape[0]
     dev = codes.device
     k, K = cfg.k, cfg.K
+    if upto == "pattern":
+        return collect_hits(codes, lens, tables, cfg, upto="pattern")
     fallback, shift, extracted, mv_n, capped, fk, fq, fok, rk, rq, rok = (
         collect_hits(codes, lens, tables, cfg))
     _mark("front")
@@ -749,6 +859,35 @@ def fused_map_step(codes, lens, tables: dict, cfg: StepConfig,
     return {"meta": meta, "ops": ops_packed}
 
 
+def step_config(index, mo, Lmax: int, S: int, S2: int, A: int) -> StepConfig:
+    """StepConfig of a mapper's budgets: the seed budgets capped at the
+    diet length of the longest read (device_step.py:1402-1407)."""
+    dmax = pattern.diet_length(Lmax, mo.pattern, 0)
+    return StepConfig.from_options(index, mo, index.derive_mid_occ(mo), Lmax,
+                                   min(S, dmax), min(S2, dmax), A)
+
+
+def ref_tables(index, cfg: StepConfig, dev) -> dict:
+    """The step's reference tables on ``dev``: the 2-bit packed reference
+    and its N mask, sequence offsets and lengths, the pattern tables.
+    ``.to()`` is a no-op where the index already lives."""
+    maps, pref, _ = _pattern_tables(cfg)
+    packed, nmask = index.device_packed()
+    return {
+        "ref_codes": packed.to(dev),
+        "ref_nmask": None if nmask is None else nmask.to(dev),
+        "ref_offsets": torch.from_numpy(np.asarray(index.seq_offsets, np.int64)).to(dev),
+        "ref_lengths": torch.from_numpy(np.asarray(index.lengths, np.int64)).to(dev),
+        "maps": torch.from_numpy(maps).to(dev),
+        "pref": torch.from_numpy(pref).to(dev),
+    }
+
+
+# the five-stage profile's cuts of the step, in order (device_step.py:1520)
+STAGE_CUTS = (("pattern", "pattern"), ("seed", "seed"), ("vote", "vote"), ("align", None))
+STAGE_REPS = 5  # timed runs of each cut; staged_times takes the fastest
+
+
 class TorchFusedMapper:
     """Device tables + the fused step for one configuration
     (device_step.py:1396-1517), on an explicit device."""
@@ -757,36 +896,70 @@ class TorchFusedMapper:
                  A: int = 2048, dp_frac: float = 1.0, device=None,
                  dp_fold: bool = False):
         self.device = torch.device(device if device is not None else index.device)
-        mid_occ = index.derive_mid_occ(mo)
-        dmax = pattern.diet_length(Lmax, mo.pattern, 0)
-        cfg = StepConfig.from_options(index, mo, mid_occ, Lmax, min(S, dmax),
-                                      min(S2, dmax), A)
+        cfg = step_config(index, mo, Lmax, S, S2, A)
         tkv, c1, c2, nb = index.device_cuckoo_kv()
         # dp_fold folds the DP where the banded lane window cannot engage
         # (device_step.py:1325-1328); resolved once per mapper
         fold = dp_fold and window_geometry(cfg.bw_max, -(-Lmax // 128) * 128) is None
-        self.cfg = dataclass_replace(cfg, dp_frac=dp_frac, cuckoo_c1=c1,
-                                     cuckoo_c2=c2, cuckoo_nb=nb, dp_fold=fold)
-        maps, pref, _ = _pattern_tables(self.cfg)
-        packed, nmask = index.device_packed()
+        self.cfg = dataclass_replace(cfg, dp_frac=dp_frac, cuckoo_c1=c1, cuckoo_c2=c2,
+                                     cuckoo_nb=nb, dp_fold=fold)
         dev = self.device
-        self.tables = {  # .to() is a no-op where the index already lives
-            "cuckoo": tkv.to(dev),
-            "positions": index.device_positions().to(dev),
-            "ref_codes": packed.to(dev),
-            "ref_nmask": None if nmask is None else nmask.to(dev),
-            "ref_offsets": torch.from_numpy(np.asarray(index.seq_offsets, np.int64)).to(dev),
-            "ref_lengths": torch.from_numpy(np.asarray(index.lengths, np.int64)).to(dev),
-            "maps": torch.from_numpy(maps).to(dev),
-            "pref": torch.from_numpy(pref).to(dev),
-        }
+        self.tables = {**ref_tables(index, self.cfg, dev), "cuckoo": tkv.to(dev),
+                       "positions": index.device_positions().to(dev)}
+
+    def inputs(self, codes: np.ndarray, lens: np.ndarray):
+        """Host numpy batch -> (codes, lens) tensors on the device."""
+        c = torch.from_numpy(np.ascontiguousarray(codes, np.uint8)).to(self.device)
+        ln = torch.from_numpy(np.ascontiguousarray(lens, np.int64)).to(self.device)
+        return c, ln
+
+    def step(self, codes, lens, upto: str | None = None, mark=None):
+        """``fused_map_step`` on device tensors from ``inputs``."""
+        return fused_map_step(codes, lens, self.tables, self.cfg, upto=upto, mark=mark)
 
     def __call__(self, codes: np.ndarray, lens: np.ndarray, mark=None) -> dict:
         """Dispatch one batch (host numpy in); returns device tensors."""
-        c = torch.from_numpy(np.ascontiguousarray(codes, np.uint8)).to(self.device)
-        ln = torch.from_numpy(np.ascontiguousarray(lens, np.int64)).to(self.device)
-        return fused_map_step(c, ln, self.tables, self.cfg, mark=mark)
+        return self.step(*self.inputs(codes, lens), mark=mark)
 
     def fetch(self, dev: dict, B: int):
         """Device outputs -> (meta [B, 3+12K] i32, ops [N2, OB] u8) numpy."""
         return dev["meta"][:B].cpu().numpy(), dev["ops"].cpu().numpy()
+
+    def sync(self) -> None:
+        """Wait for the work queued on the mapper's card(s)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def staged_times(self, codes: np.ndarray, lens: np.ndarray) -> dict:
+        return staged_times(self, codes, lens)
+
+
+def staged_times(mapper, codes: np.ndarray, lens: np.ndarray) -> dict:
+    """Five-stage profile of one batch (the reference's -DPROFILE split,
+    profile.h:6-28; device_step.py:1520-1572) on ``mapper`` (a
+    ``TorchFusedMapper`` or ``parallel.dist.ShardedFused``): the step cut
+    at each stage's end (``STAGE_CUTS``) is run once to warm up, then timed
+    ``STAGE_REPS`` times, each run synchronised; returns the marginal
+    seconds of pattern, seed, vote and align from each cut's fastest run,
+    each clipped at 0. A re-run estimate, like a profiling build.
+
+    ``gdiet_tpu`` times each cut once. On the card the vote stage adds
+    ~0.05 ms to a ~12 ms cut, less than one timing's spread while the
+    pipeline's producer thread enqueues the next batch (a single timing
+    gave the vote 0 ns on both batches of a 10,016-read run, NVIDIA H100
+    80GB HBM3, 700.00 W); interference only adds time, so the fastest of a
+    few runs is the steadier reading."""
+    c, ln = mapper.inputs(codes, lens)
+    out, prev = {}, 0.0
+    for name, upto in STAGE_CUTS:
+        mapper.step(c, ln, upto=upto)
+        mapper.sync()
+        best = float("inf")
+        for _ in range(STAGE_REPS):
+            t0 = time.perf_counter()
+            mapper.step(c, ln, upto=upto)
+            mapper.sync()
+            best = min(best, time.perf_counter() - t0)
+        out[name] = max(best - prev, 0.0)
+        prev = best
+    return out

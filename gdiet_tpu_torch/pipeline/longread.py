@@ -18,7 +18,14 @@ CPU their plain versions (``gdiet_tpu`` runs the scalar ``oal.extd2`` off
 the TPU instead). Segments beyond the largest bucket take ``oal.extd2`` on
 the host, the reference's own routing (``stats["host_dp_segments"]``).
 Reads outside the fixed-shape envelope map through the scalar oracle
-``olr.map_read_lr`` (``stats["fallback_reads"]``). There is no mesh.
+``olr.map_read_lr`` (``stats["fallback_reads"]``).
+
+``LongReadMapper(mesh=...)`` runs the front over a (data, ref) mesh
+(``parallel/dist.py::sharded_lr_front``: reads split across the data rows,
+the index split by key range, the shards' hit streams merged before the
+votes); the device batch is padded to a multiple of the data-axis size
+(length 0, ``cov_thr`` 0, ``vt_dis`` 1) and the meta sliced back. The
+host finish and the segment DP, on the mesh's first device, are unchanged.
 """
 
 from __future__ import annotations
@@ -28,15 +35,16 @@ from dataclasses import replace as dataclass_replace
 import numpy as np
 import torch
 
-from gdiet_tpu_torch import config, debug, native, pattern
+from gdiet_tpu_torch import config, debug, native
 from gdiet_tpu_torch.io import sam as samio
 from gdiet_tpu_torch.ops import extd2
 from gdiet_tpu_torch.ops.dp import cigars_from_ops
 from gdiet_tpu_torch.ops.dp_band import LR_UNROLL, window_geometry
 from gdiet_tpu_torch.oracle import align as oal
 from gdiet_tpu_torch.oracle import longread as olr
-from gdiet_tpu_torch.pipeline.device_step import (StepConfig, _pattern_tables,
-                                                  pack_ops, unpack_ops)
+from gdiet_tpu_torch.parallel.dist import sharded_lr_front
+from gdiet_tpu_torch.pipeline.device_step import (_pattern_tables, pack_ops,
+                                                  step_config, unpack_ops)
 from gdiet_tpu_torch.pipeline.lr_step import lr_front, unpack_lr_meta
 from gdiet_tpu_torch.utils.profile import PROFILE, Stage
 
@@ -55,11 +63,13 @@ class LongReadMapper:
     def __init__(self, index, mo, max_read_len: int = 8192,
                  seed_budget: int = 2048, shift_seed_budget: int = 256,
                  hit_budget: int = 8192, vote_budget: int = 0,
-                 n_threads: int = 1, device=None):
+                 n_threads: int = 1, device=None, mesh=None):
         native.require_native()
         self.mi = index
         self.mo = mo
-        self.device = torch.device(device if device is not None else index.device)
+        self.mesh = mesh
+        self.device = (mesh.lead(0) if mesh is not None else
+                       torch.device(device if device is not None else index.device))
         self.mid_occ = index.derive_mid_occ(mo)
         self.Lmax = max_read_len
         # -t analog (kt_for): prepare_segments / finalize_read / oracle
@@ -71,20 +81,23 @@ class LongReadMapper:
         # (front, host_mid, dp, backtrack, d2h, host_finish)
         self.mark = None
 
-        dmax = pattern.diet_length(max_read_len, mo.pattern, 0)
-        cfg = StepConfig.from_options(index, mo, self.mid_occ, max_read_len,
-                                      min(seed_budget, dmax),
-                                      min(shift_seed_budget, dmax), hit_budget)
-        tkv, c1, c2, nb = index.device_cuckoo_kv()
+        cfg = step_config(index, mo, max_read_len, seed_budget, shift_seed_budget,
+                          hit_budget)
         # LR voting keeps vt_nb_loc candidates (map.c:1310)
-        self.cfg = dataclass_replace(cfg, K=mo.vt_nb_loc, vote_budget=vote_budget,
-                                     cuckoo_c1=c1, cuckoo_c2=c2, cuckoo_nb=nb)
-        maps, pref, _ = _pattern_tables(self.cfg)
-        dev = self.device
-        self.tables = {"cuckoo": tkv.to(dev),
-                       "positions": index.device_positions().to(dev),
-                       "maps": torch.from_numpy(maps).to(dev),
-                       "pref": torch.from_numpy(pref).to(dev)}
+        cfg = dataclass_replace(cfg, K=mo.vt_nb_loc, vote_budget=vote_budget)
+        if mesh is not None:
+            self.cfg = cfg
+            self._mesh_front = sharded_lr_front(
+                mesh, index, cfg, index.k, float(mo.vt_df1), float(mo.vt_f), int(mo.bw))
+        else:
+            tkv, c1, c2, nb = index.device_cuckoo_kv()
+            self.cfg = dataclass_replace(cfg, cuckoo_c1=c1, cuckoo_c2=c2, cuckoo_nb=nb)
+            maps, pref, _ = _pattern_tables(self.cfg)
+            dev = self.device
+            self.tables = {"cuckoo": tkv.to(dev),
+                           "positions": index.device_positions().to(dev),
+                           "maps": torch.from_numpy(maps).to(dev),
+                           "pref": torch.from_numpy(pref).to(dev)}
 
     def _mark(self, name: str) -> None:
         if self.mark is not None:
@@ -188,13 +201,24 @@ class LongReadMapper:
         mo = self.mo
         codes, _ = native.encode_batch([r.seq for r in reads], self.Lmax)
         cov_thr = np.array([int(F32(n) * F32(mo.vt_cov)) for n in lens_np], np.int32)
-        dev = self.device
-        meta = lr_front(
-            torch.from_numpy(codes).to(dev), torch.from_numpy(lens_np).to(dev),
-            self.tables, torch.from_numpy(cov_thr).to(dev),
-            torch.full((len(reads),), int(mo.vt_dis), dtype=torch.int64, device=dev),
-            self.cfg, k=self.mi.k, vt_df1=float(mo.vt_df1), vt_f=float(mo.vt_f),
-            bw=int(mo.bw))
+        vt_dis = np.full(len(reads), mo.vt_dis, np.uint64).view(np.int64)
+        if self.mesh is not None:
+            # pad to a multiple of the data-axis size with zero-length rows
+            # (sliced off the meta below), as longread.py:272-290 does
+            B, pad = len(reads), (-len(reads)) % self.mesh.shape["data"]
+            codes_p = np.concatenate([codes, np.full((pad, self.Lmax), 255, np.uint8)])
+            args = [np.concatenate([lens_np, np.zeros(pad, np.int64)]),
+                    np.concatenate([cov_thr, np.zeros(pad, np.int32)]),
+                    np.concatenate([vt_dis, np.ones(pad, np.int64)])]
+            meta = self._mesh_front(*(torch.from_numpy(a).to(self.device)
+                                      for a in (codes_p, *args)))[:B]
+        else:
+            dev = self.device
+            meta = lr_front(
+                torch.from_numpy(codes).to(dev), torch.from_numpy(lens_np).to(dev),
+                self.tables, torch.from_numpy(cov_thr).to(dev),
+                torch.from_numpy(vt_dis).to(dev), self.cfg, k=self.mi.k,
+                vt_df1=float(mo.vt_df1), vt_f=float(mo.vt_f), bw=int(mo.bw))
         self._mark("front")
         return codes, meta
 

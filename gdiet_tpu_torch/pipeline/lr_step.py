@@ -256,15 +256,17 @@ def lr_front(codes, lens, tables: dict, cov_thr, vt_dis, cfg: StepConfig,
     """Device front of the LR mm_map_frag (lr_step.py:283-362): hit
     collection, round-1 vote, filters and both round-2 window votes.
     codes [B, Lmax] u8, lens [B] i64, cov_thr [B] i32, vt_dis [B] i64 (u64
-    bits); ``tables`` from ``TorchFusedMapper``'s layout. Returns the packed
-    meta [B, 4 + 8K + 4 + 16] i32."""
+    bits); ``tables`` as ``collect_hits`` takes them (the whole index, or
+    one data row's shards of ``parallel.dist.sharded_lr_front``, whose
+    merged streams are A * n_ref wide). Returns the packed meta [B, 4 + 8K
+    + 4 + 16] i32."""
     (fallback, shift, extracted, _mv_n, _capped,
      fk, fq, fok, rk, rq, rok) = collect_hits(codes, lens, tables, cfg)
     # compact the voted stream: the strand-sorted hits put valid ones first,
     # so the scans run over vote_budget slots (views, not copies);
     # overflowing reads fall back
     C = cfg.vote_budget
-    if C and C < cfg.A:
+    if C and C < fk.shape[1]:
         fallback = (fallback | (fok.sum(1, dtype=I32) > C)
                     | (rok.sum(1, dtype=I32) > C))
         fk, fq, fok = fk[:, :C], fq[:, :C], fok[:, :C]

@@ -18,8 +18,13 @@ if still outside, by the scalar oracle, so the output is identical to the
 reference's. Paired-end pairs outside it take the oracle directly, as in
 ``gdiet_tpu``.
 
-Not ported yet: the multi-device mesh and the five-stage profile re-run
-(``NotImplementedError``).
+``ShortReadMapper(mesh=...)`` maps over a (data, ref) mesh of devices
+(``parallel/dist.py::ShardedFused``: reads split across the data rows, the
+index split by key range, the shards' hits merged on the device) with the
+same host finish; its retry tier stays one un-meshed mapper on the mesh's
+first device. ``profile_stages=True`` (``-v 4``) re-runs each SAM batch cut
+at the stage boundaries (``staged_times``) and adds the four stages'
+times to ``PROFILE``.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from gdiet_tpu_torch.oracle import align as oal
 from gdiet_tpu_torch.oracle import hit as oracle_hit
 from gdiet_tpu_torch.oracle import pipeline as oracle_pipeline
 from gdiet_tpu_torch.ops.dp import cigars_from_ops
+from gdiet_tpu_torch.parallel.dist import ShardedFused
 from gdiet_tpu_torch.pipeline.device_step import (TorchFusedMapper,
                                                   unpack_ops, unpack_outputs)
 from gdiet_tpu_torch.utils.profile import PROFILE, Stage
@@ -74,21 +80,22 @@ class ShortReadMapper:
                  retry_hit_budget: int = 2048, retry_batch: int = 512,
                  n_threads: int = 1, profile_stages: bool = False,
                  device=None, dp_fold: bool = False):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device mapping is not ported yet: see ROADMAP.md")
-        if profile_stages:
-            raise NotImplementedError(
-                "the five-stage profile re-run is not ported yet: see ROADMAP.md")
         self.native = native.require_native()
         self.mi = index
         self.mo = mo
-        self.device = torch.device(device if device is not None else index.device)
         self.mid_occ = index.derive_mid_occ(mo)
         self.Lmax = max_read_len
-        self.fused = TorchFusedMapper(
-            index, mo, Lmax=max_read_len, S=seed_budget, S2=shift_seed_budget,
-            A=hit_budget, dp_frac=dp_frac, dp_fold=dp_fold, device=self.device)
+        self.profile_stages = profile_stages
+        if mesh is not None:  # the sharded step never folds the DP
+            self.fused = ShardedFused(
+                index, mo, mesh, Lmax=max_read_len, S=seed_budget,
+                S2=shift_seed_budget, A=hit_budget, dp_frac=dp_frac)
+            self.device = self.fused.device
+        else:
+            self.device = torch.device(device if device is not None else index.device)
+            self.fused = TorchFusedMapper(
+                index, mo, Lmax=max_read_len, S=seed_budget, S2=shift_seed_budget,
+                A=hit_budget, dp_frac=dp_frac, dp_fold=dp_fold, device=self.device)
         self._retry_args = (seed_budget, shift_seed_budget, retry_hit_budget)
         self.retry_batch = retry_batch
         self._retry_fused = None
@@ -467,6 +474,11 @@ class ShortReadMapper:
         B = len(reads)
         spans: list = [None] * B
         buf = b""
+        if self.profile_stages and dev is not None:
+            st = self.fused.staged_times(codes[device_idx], lens[device_idx])
+            for stage, name in ((Stage.PATTERN_ALIGNMENT, "pattern"), (Stage.SEEDING, "seed"),
+                                (Stage.VOTING, "vote"), (Stage.SEQUENCE_ALIGNMENT, "align")):
+                PROFILE.add(stage, int(st[name] * 1e9))
         if dev is not None:
             meta_np, ops_np = fetched
             di = device_idx

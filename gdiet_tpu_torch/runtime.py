@@ -19,8 +19,14 @@ Port of ``gdiet_tpu/runtime.py``. ``run_mapping`` routes a run exactly as
   query file: fragment batches of ``mini_batch_size`` bases through
   ``map_stream``, one record per region.
 
-``--mesh`` and a ``GDIET_COORDINATOR`` join (multi-device mapping) raise
-``NotImplementedError``.
+``--mesh DATAxREF`` maps the short-read paths and the long-read path over a
+(data, ref) mesh (``parallel/dist.py``): a virtual mesh of the CPU with
+``--device cpu``, DATA x REF cards with ``--device cuda``; the paired-end
+fast path stays off under a mesh, as in ``gdiet_tpu``. With
+``GDIET_COORDINATOR`` (host:port), ``GDIET_NUM_PROCESSES`` and
+``GDIET_PROCESS_ID`` set, the process first joins a gloo process group
+(each process maps its own reads) and leaves it when the run ends. ``-v 4``
+adds the five-stage profile of the single-end SAM path.
 """
 
 from __future__ import annotations
@@ -101,10 +107,11 @@ def _report(verbose: int, cli_line: str, t0: float) -> None:
 
 def run_sr_sam(mi, mo, query: str, out_path: str | None, n_threads: int,
                verbose: int, cli_line: str, t0: float, device,
-               batch_reads: int = 8192, dp_fold: bool = False) -> int:
+               batch_reads: int = 8192, dp_fold: bool = False, mesh=None) -> int:
     """SR + SAM path (gdiet_tpu/runtime.py:192-335): fixed batch shape,
     tail batch padded, Lmax from the first batch, re-tier after enough
-    length-overflow reads. ``dp_fold``: ``TorchFusedMapper``'s."""
+    length-overflow reads. ``dp_fold``: ``TorchFusedMapper``'s; ``mesh``:
+    ``ShortReadMapper``'s; ``verbose >= 4`` adds the five-stage profile."""
     from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
 
     rdr = read_fastx(query)
@@ -131,7 +138,7 @@ def run_sr_sam(mi, mo, query: str, out_path: str | None, n_threads: int,
                 mi, mo, max_read_len=lmax, seed_budget=32 * scale,
                 shift_seed_budget=16 * scale, hit_budget=64 * scale,
                 dp_frac=0.3125, n_threads=n_threads, device=device,
-                dp_fold=dp_fold)
+                dp_fold=dp_fold, mesh=mesh, profile_stages=verbose >= 4)
 
         Lmax = _round16(max(r.l_seq for r in first))
         mapper = make_mapper(Lmax)
@@ -267,16 +274,16 @@ def dp_fold_env() -> bool:
 
 
 def _make_mapper(mi, mo, variant: str, max_read_len: int | None, device,
-                 n_threads: int = 1):
+                 n_threads: int = 1, mesh=None):
     if variant == "sr":
         from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
 
         return ShortReadMapper(mi, mo, max_read_len=max_read_len or 256,
                                n_threads=n_threads, device=device,
-                               dp_fold=dp_fold_env())
+                               dp_fold=dp_fold_env(), mesh=mesh)
     from gdiet_tpu_torch.pipeline.longread import LongReadMapper
 
-    return LongReadMapper(mi, mo, n_threads=n_threads, device=device)
+    return LongReadMapper(mi, mo, n_threads=n_threads, device=device, mesh=mesh)
 
 
 def _out_stream(out_path: str | None):
@@ -379,7 +386,7 @@ def run_split_mapping(io, mo, variant: str, target: str, queries: list, out,
 
 def run_generic(mi, mo, variant: str, queries: list, out_path: str | None,
                 n_threads: int, verbose: int, cli_line: str, t0: float, device,
-                max_read_len: int | None = None) -> int:
+                max_read_len: int | None = None, mesh=None) -> int:
     """The per-record writer (gdiet_tpu/runtime.py:516-674): fragment
     batches of ``mini_batch_size`` bases (``--split-reads`` cuts long reads
     into chunks first) through ``map_stream``, one SAM or PAF record per
@@ -389,7 +396,7 @@ def run_generic(mi, mo, variant: str, queries: list, out_path: str | None,
     with mate fields."""
     from gdiet_tpu_torch.oracle import hit as ohit
 
-    mapper = _make_mapper(mi, mo, variant, max_read_len, device, n_threads)
+    mapper = _make_mapper(mi, mo, variant, max_read_len, device, n_threads, mesh)
     out = _out_stream(out_path)
     sam_mode = bool(mo.flag & cfg.MM_F_OUT_SAM)
     if sam_mode:
@@ -509,22 +516,54 @@ def route(mo, variant: str, queries: list, max_read_len: int | None = None) -> s
     return "generic"
 
 
+def _mesh(mo, device, verbose: int, t0: float):
+    """The ``--mesh`` mesh of a run, logged as gdiet_tpu/runtime.py:217-223
+    logs it; None without ``--mesh``."""
+    if mo.mesh_shape is None:
+        return None
+    from gdiet_tpu_torch.parallel.dist import device_mesh
+
+    mesh = device_mesh(mo.mesh_shape, device)
+    _log(verbose, t0, f"multi-chip mesh: data={mo.mesh_shape[0]} ref={mo.mesh_shape[1]}")
+    return mesh
+
+
 def run_mapping(io, mo, variant: str, target: str, queries: list,
                 device, fnw: str | None = None, out_path: str | None = None,
                 n_threads: int = 3, verbose: int = 3,
                 cli_line: str = "gdiet", max_read_len: int | None = None) -> int:
     """Build or load the index on ``device``, then map through the writer
     ``route`` picks (``--split-prefix`` first, as gdiet_tpu/runtime.py:432-674
-    does)."""
+    does). With ``GDIET_COORDINATOR`` set the run is one process of a
+    group (gdiet_tpu/runtime.py:447-460): it joins first and leaves at the
+    end, after every process finished when the run succeeded."""
     t0 = time.perf_counter()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("[ERROR] --device cuda: no CUDA device is available")
-    if mo.mesh_shape is not None or os.environ.get("GDIET_COORDINATOR"):
-        raise NotImplementedError(
-            "multi-device mapping (--mesh, GDIET_COORDINATOR) is not ported to "
-            "gdiet_tpu_torch yet (see ROADMAP.md)")
+    coordinator = os.environ.get("GDIET_COORDINATOR")
+    if not coordinator:
+        return _run_mapping(io, mo, variant, target, queries, device, fnw, out_path,
+                            n_threads, verbose, cli_line, max_read_len, t0)
+    from gdiet_tpu_torch.parallel.dist import init_distributed, shutdown_distributed
 
+    pid = int(os.environ.get("GDIET_PROCESS_ID", "0"))
+    world = init_distributed(coordinator, int(os.environ.get("GDIET_NUM_PROCESSES", "1")),
+                             pid)
+    _log(verbose, t0, f"joined torch.distributed (gloo) as process {pid} of {world}")
+    done = False
+    try:
+        rc = _run_mapping(io, mo, variant, target, queries, device, fnw, out_path,
+                          n_threads, verbose, cli_line, max_read_len, t0)
+        done = True
+        return rc
+    finally:
+        shutdown_distributed(wait=done)
+
+
+def _run_mapping(io, mo, variant: str, target: str, queries: list, device, fnw,
+                 out_path, n_threads: int, verbose: int, cli_line: str,
+                 max_read_len, t0: float) -> int:
     # multi-part split mapping (-I small + --split-prefix)
     if mo.split_prefix and not TorchIndex.is_index(target):
         total = sum(r.l_seq for r in read_fastx(target))
@@ -547,10 +586,12 @@ def run_mapping(io, mo, variant: str, target: str, queries: list,
     path = route(mo, variant, queries, max_read_len)
     if path == "sr_se":
         return run_sr_sam(mi, mo, queries[0], out_path, n_threads, verbose,
-                          cli_line, t0, device, dp_fold=dp_fold_env())
+                          cli_line, t0, device, dp_fold=dp_fold_env(),
+                          mesh=_mesh(mo, device, verbose, t0))
     if path == "sr_pe":
         return run_sr_pe_sam(mi, mo, queries[0], queries[1], out_path,
                              n_threads, verbose, cli_line, t0, device,
                              dp_fold=dp_fold_env())
     return run_generic(mi, mo, variant, queries, out_path, n_threads, verbose,
-                       cli_line, t0, device, max_read_len)
+                       cli_line, t0, device, max_read_len,
+                       mesh=_mesh(mo, device, verbose, t0))

@@ -63,10 +63,12 @@ class Profiler:
                    Stage.SEQUENCE_ALIGNMENT)
 
     def report(self, out=None) -> str:
+        # every stage that was measured prints, a 0 ns one too (a -v 4
+        # re-run estimate can be 0 when a stage is under the timing noise)
         lines = [
             f"[PROFILING] {s.value} time: {self.ns[s]} ns"
             for s in Stage
-            if self.ns.get(s)
+            if s in self.ns
         ]
         if any(self.ns.get(s) for s in self._FIVE_STAGE):
             lines.append(

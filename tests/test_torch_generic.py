@@ -263,7 +263,14 @@ def test_run_mapping_calls_the_routed_writer(monkeypatch, pe_subset):
     assert seen == ["run_sr_sam", "run_sr_pe_sam", "run_generic", "run_generic"]
 
 
-def test_mesh_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="--mesh"):
-        port_main(["--device", "cpu", "-a", "--mesh", "2x2", *SR,
-                   str(DATA / "ref.fa"), str(DATA / "reads.fq")])
+def test_mesh_raises(monkeypatch):
+    """A --mesh of cards needs DATA x REF visible CUDA devices: without
+    them it raises, and drops neither to the CPU nor to one card (the
+    mapping itself is tests/test_torch_mesh.py's)."""
+    import torch
+
+    from gdiet_tpu_torch.parallel.dist import device_mesh
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 4 CUDA devices"):
+        device_mesh((2, 2), "cuda")

@@ -1,10 +1,11 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
-An AST walk over every module of ``gdiet_tpu_torch`` and over
-``chip_smoke.py`` finds no import of ``jax`` or ``gdiet_tpu`` (comments and
-docstrings may name the JAX files). The single-end, paired-end (folded DP),
-generic (``--MD --cs`` SAM, ``-c`` PAF) and long-read CLIs then run in a
-subprocess with ``sys.modules["jax"]``,
+An AST walk over every module of ``gdiet_tpu_torch`` (``parallel/``
+included) and over ``chip_smoke.py`` finds no import of ``jax`` or
+``gdiet_tpu`` (comments and docstrings may name the JAX files). The
+single-end (also on a ``--mesh 2x2`` virtual CPU mesh), paired-end (folded
+DP), generic (``--MD --cs`` SAM, ``-c`` PAF) and long-read CLIs then run in
+a subprocess with ``sys.modules["jax"]``,
 ``["jaxlib"]`` and ``["gdiet_tpu"]`` set to None before anything else, so
 any such import on their path would fail, and each writes the same SAM as
 the port's run in this process, where both packages are loaded.
@@ -71,6 +72,7 @@ def _imports(path: pathlib.Path) -> list:
 def test_port_imports_neither_jax_nor_gdiet_tpu():
     files = sorted((ROOT / "gdiet_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30 and ROOT / "gdiet_tpu_torch" / "api.py" in files
+    assert ROOT / "gdiet_tpu_torch" / "parallel" / "dist.py" in files
     bad = [(str(f.relative_to(ROOT)), n) for f in files for n in _imports(f)
            if n.split(".")[0] in ("jax", "jaxlib", "gdiet_tpu")]
     assert not bad, bad
@@ -104,6 +106,16 @@ def test_cli_golden_without_jax(data_dir, tmp_path):
     _run_without_jax([*ARGS, "-o", str(out), *inputs])
     assert sam_body(out) == sam_body(data_dir / "golden.sam")
     assert sam_body(out) == _run_here([*ARGS, *inputs], tmp_path / "here.sam")
+
+
+def test_mesh_cli_without_jax(data_dir, tmp_path):
+    """The single-end CLI on a 2x2 virtual CPU mesh (parallel/dist.py)."""
+    out = tmp_path / "mesh.sam"
+    args = [*ARGS, "--mesh", "2x2"]
+    inputs = [str(data_dir / "ref.fa"), str(data_dir / "reads.fq")]
+    _run_without_jax([*args, "-o", str(out), *inputs])
+    assert sam_body(out) == sam_body(data_dir / "golden.sam")
+    assert sam_body(out) == _run_here([*args, *inputs], tmp_path / "here.sam")
 
 
 def test_pe_cli_without_jax(data_dir, tmp_path):
