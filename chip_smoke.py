@@ -6,10 +6,16 @@
 Needs one CUDA GPU, the CUDA toolkit (nvcc) and a C compiler; imports no
 JAX. Phases, each printing one line:
 
-1. device/build: ``nvidia-smi`` name and power limit; the six CUDA kernel
-   sources of the SR, PE and LR paths built from the checkout, one
+1. device/build: ``nvidia-smi`` name and power limit; the nine CUDA kernel
+   sources of the SR, PE and LR paths (the DP's three layouts in int32 and
+   int16 lane state, the backtrack, two votes) built from the checkout, one
    ``nvcc`` per source started together (seconds and ``ptxas -v`` output
-   per kernel).
+   per kernel). The DP's lane state on each route: int16 on the LR
+   windowed buckets and at the full-width shapes where the int16 kernel
+   measured faster (128, 192, 256 and 512 lanes, the LR (512, 1024)
+   bucket), else int32 (the SE width, the fold, unmeasured shapes;
+   ``extd2.route_state_dtype``, ``sr_dp_kernel``); the phases below check
+   the kernels of each route.
 2. kernel: the CUDA ``extd2`` DP kernel (one warp per row) against its
    plain torch version on the card at the short-read main-path shape (6,272
    rows, Lmax = Lt = 160, qlen 150, bands 150-200; seeded pairs with
@@ -85,7 +91,8 @@ JAX. Phases, each printing one line:
    ``GDIET_DP_FOLD=1``: records equal the same run on ``cpu`` (the plain
    versions) and on ``cuda`` with the fold off, byte for byte, and the R1
    records match ``golden_pe_r1.sam`` as ``tests/test_pe_parity.py`` checks
-   them. Both cuda runs launch the backtrack kernel and never the plain walk.
+   them. Both cuda runs launch the backtrack kernel and never the plain
+   walk.
 10. pe: the PE path at full width with ``GDIET_DP_FOLD=1``: FR pairs of 150
    bp ends (fragments of 250-500 bp, 0.5% substitutions) from the bench
    genome, 1 warm-up + 3 timed batches of 4,096 pairs at the JAX runtime's
@@ -98,7 +105,7 @@ JAX. Phases, each printing one line:
    The DP inputs of one batch, as the step hands them to the fold kernel,
    go through the kernel and the plain fold version once more, and the
    folded dirs through the backtrack kernel and the plain walk: exact.
-11. kernel_band: the banded lane window kernel ``extd2_band`` against its
+11. kernel_band: the int32 banded lane window kernel ``extd2_band`` against its
    plain version at the (2048, 3072) long-read bucket, 64 seeded windows
    (equal, mutated, indels, N codes, dead rows), at band 500 (WB 768) and
    1300 (WB 1,536), two lanes per thread: scores, every dirs byte, offs and
@@ -115,15 +122,17 @@ JAX. Phases, each printing one line:
 12. golden_lr: ``tests/data/ref_lr.fa`` + ``reads_lr.fq`` through the port's
    CLI on ``cuda`` with the HiFi and ONT arguments of
    ``tests/data/make_lr_fixtures.py``: records byte-equal to
-   ``golden_lr_hifi.sam`` and ``golden_lr_ont.sam``.
+   ``golden_lr_hifi.sam`` and ``golden_lr_ont.sam``, through the int16
+   band kernel.
 13. lr: the HiFi path at full size: bench.py's ``gen_lr_reads`` recipe on
    the bench genome, its ``lr_stats`` options and mapper budgets, 1
    warm-up + 3 timed batches of 256 reads. Counts reset just before and
    read just after. Checks: >= 90% of reads mapped, the first 32 reads'
-   SAM equal to the scalar oracle's, band and backtrack kernel launches > 0
-   and no plain banded DP or plain backtrack call. One batch's per-phase
-   times; one chunk's captured DP inputs (the smallest bucket) through the
-   kernels and the plain versions once more, exact. The LR vote kernel
+   SAM equal to the scalar oracle's, int16 DP (band or full width) and
+   backtrack kernel launches > 0, no int32 DP launch and no plain banded
+   DP or plain backtrack call. One batch's per-phase times; one chunk's
+   captured DP inputs (the smallest windowed bucket, int16 lane state)
+   through the kernels and the plain versions once more, exact. The LR vote kernel
    launched (twice a batch) and neither the plain LR vote loops nor
    ``lr_step._stream_columns`` called.
 14. kernel_vote_lr: ``csrc/vote_lr.cu``'s round 1 (``vote_lr``) and both
@@ -135,8 +144,8 @@ JAX. Phases, each printing one line:
    ``gen_ont_reads`` recipe (30 kb reads at 3% substitutions, 1%
    insertions, 1% deletions) and ``ont_stats`` options and budgets, 1
    warm-up + 2 timed batches of 16. Checks: >= 90% of reads mapped; the
-   DP, backtrack and vote kernels launched and no plain version called in
-   the timed window; one batch's captured vote stream (M = 8,194) through
+   int16 DP, backtrack and vote kernels launched, no int32 DP and no plain
+   version called in the timed window; one batch's captured vote stream (M = 8,194) through
    ``vote_lr.cu`` and the plain loops, exact. Reads/s, fallbacks and host
    DP segments (``LongReadMapper.stats``), one batch's per-phase times.
 
@@ -171,6 +180,19 @@ JAX. Phases, each printing one line:
    ``cuda:0``: the front's packed meta and the SAM equal the single-device
    run's; the band, backtrack and vote_lr kernels launched and no plain
    version.
+20. kernel_int16 (after ont): each int16 lane-state kernel
+   (``extd2_i16``, ``extd2_band_i16``, ``extd2_fold_i16``: two lanes a
+   32-bit register, 16x2 DPX) on the DP calls the paths made (the SE, PE
+   and generic (256 and 512 lanes) steps' calls, each call of one HiFi
+   batch, the ONT batch's (32768, 34048) chunk) and on seeded rows at 128
+   and 192 lanes: exact against the int32 kernel of its layout and, on the
+   SE, PE and generic 512-lane calls and once per HiFi and ONT bucket
+   shape (the ONT chunk included, ~2.5 min), against its plain int16
+   version; times in turns
+   against int32 (median of 5 rounds), bounds (a packed 16x2 operation
+   counts as two lane operations), shares, ptxas registers and spills, and
+   the 16x2 DPX instructions of each SASS (> 0). Where a route takes int16
+   the int16 kernel must not be slower there than int32 (1%).
 
 Then a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before the last line is printed. Without a
@@ -338,6 +360,15 @@ def dp_pairs(N: int, L: int, qlen: int, seed: int = 1):
 PARAMS = (2, 8, 12, 2, 24, 1)  # the sr preset's scoring
 
 
+def sr_dp_kernel(L: int, fold: bool) -> str:
+    """The DP kernel the short-read step's route launches at Lmax ``L``
+    (extd2.route_state_dtype, at the sr preset's scoring)."""
+    from gdiet_tpu_torch.ops.extd2 import route_state_dtype
+
+    i16 = route_state_dtype(PARAMS, L, fold=fold) == "int16"
+    return ("extd2_fold" if fold else "extd2") + ("_i16" if i16 else "")
+
+
 # bounds of the card (NVIDIA's H100 SXM data sheet): HBM bandwidth, and
 # the int32 issue rate of 132 SMs x 64 INT32 lanes per clock x 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12
@@ -484,7 +515,8 @@ def check_equal(got, ref, names, what: str) -> int:
     the largest difference (0)."""
     import torch
 
-    errs = [_max_err(a, b) if a.shape == b.shape else -1 for a, b in zip(got, ref)]
+    errs = [(0 if torch.equal(a, b) else _max_err(a, b)) if a.shape == b.shape else -1
+            for a, b in zip(got, ref)]
     for name, a, b, err in zip(names, got, ref, errs):
         check(a.shape == b.shape and torch.equal(a, b), f"{what}: {name} differ (max {err})")
     return max(errs)
@@ -603,20 +635,22 @@ def stream_bytes(fok, rok) -> dict:
             "longest_row_columns": int((nf + nr).max()) + 2 if len(nf) else 0}
 
 
-def rounds_ms(fn) -> float:
-    """Median over KERNEL_ROUNDS rounds of KERNEL_REPS calls, CUDA events."""
+def rounds_ms(fn, reps: int | None = None) -> float:
+    """Median over KERNEL_ROUNDS rounds of ``reps`` (KERNEL_REPS) calls,
+    CUDA events."""
     import torch
 
+    reps = reps or KERNEL_REPS
     torch.cuda.synchronize()
     ms = []
     for _ in range(KERNEL_ROUNDS):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        for _ in range(KERNEL_REPS):
+        for _ in range(reps):
             fn()
         e1.record()
         torch.cuda.synchronize()
-        ms.append(e0.elapsed_time(e1) / KERNEL_REPS)
+        ms.append(e0.elapsed_time(e1) / reps)
     return float(np.median(ms))
 
 
@@ -890,24 +924,34 @@ def sr_counts_reset() -> None:
     from gdiet_tpu_torch.pipeline import device_step
 
     for c in (extd2.launches, extd2.fold_launches, extd2.backtrack_launches,
+              extd2.i16_launches, extd2.fold_i16_launches,
               vote.launches, dp.calls, dp_fold.calls, device_step.backtrack_calls,
               device_step.vote_calls):
         c.reset()
 
 
-def sr_counts(what: str, cuda: bool) -> dict:
+def sr_counts(what: str, cuda: bool, dp_kernel: str | None = None) -> dict:
     """The SR/PE kernels' launches and their plain versions' calls since
-    the last reset; on the card every kernel must have run (the DP as
-    extd2 or extd2_fold) and no plain version."""
+    the last reset; on the card every kernel must have run and no plain
+    version: the DP only as the step's routes take it (sr_dp_kernel at any
+    width, folded or not), with ``dp_kernel`` that one alone."""
     from gdiet_tpu_torch.ops import dp, dp_fold, extd2, vote
     from gdiet_tpu_torch.pipeline import device_step
 
-    n = {"dp_launches": extd2.launches.n + extd2.fold_launches.n,
+    n = {"extd2_launches": extd2.launches.n, "extd2_i16_launches": extd2.i16_launches.n,
+         "extd2_fold_i16_launches": extd2.fold_i16_launches.n,
+         "extd2_fold_launches": extd2.fold_launches.n,
+         "dp_launches": (extd2.launches.n + extd2.i16_launches.n + extd2.fold_launches.n
+                         + extd2.fold_i16_launches.n),
          "plain_dp_calls": dp.calls.n + dp_fold.calls.n,
          "vote_launches": vote.launches.n, "plain_vote_calls": device_step.vote_calls.n,
          "backtrack_launches": extd2.backtrack_launches.n,
          "plain_backtrack_calls": device_step.backtrack_calls.n}
     if cuda:
+        routes = ({dp_kernel} if dp_kernel else
+                  {sr_dp_kernel(L, f) for L in (128, 160, 192, 256, 512) for f in (False, True)})
+        check(sum(n[f"{k}_launches"] for k in routes) == n["dp_launches"],
+              f"{what} launched DP kernels off its routes {sorted(routes)}: {n}")
         for kern in ("dp", "vote", "backtrack"):
             check(n[f"{kern}_launches"] > 0, f"{what} launched no {kern} kernel")
             check(n[f"plain_{kern}_calls"] == 0,
@@ -1030,7 +1074,7 @@ def phase_main(device, B: int, n_timed: int, genome_len: int, card: str) -> dict
     sync()
     wall = time.perf_counter() - t0
     launches, plain_calls = extd2.launches.n, dp.calls.n
-    counts = sr_counts("the main path", cuda)
+    counts = sr_counts("the main path", cuda, sr_dp_kernel(MAIN_BUDGETS["max_read_len"], False))
     stats = mapper.stats
     if cuda:
         check(launches > 0, "the main path launched no extd2 kernel")
@@ -1075,7 +1119,7 @@ def phase_main(device, B: int, n_timed: int, genome_len: int, card: str) -> dict
                                         [r.qual or "" for r in batch])
     phases = per_phase(mapper, codes, lens, cuda, lambda dev, fetched: mapper._finish_sam(
         (batch, codes, lens, np.zeros(n, bool), np.arange(n), dev, blobs, n), 0, fetched))
-    step = step_dp_check(mapper, codes, lens, fold=False)
+    step, dp_call = step_dp_check(mapper, codes, lens, fold=False)
     # ---- the wider retry tier (A = 2,048, dp_frac 1.0) on one call of
     # retry_batch reads, after a first call that builds it ----
     retry_ms = []
@@ -1098,6 +1142,7 @@ def phase_main(device, B: int, n_timed: int, genome_len: int, card: str) -> dict
            "phase_ms": phases, "retry_tier_call_ms": retry_ms[1],
            "retry_tier_first_call_ms": retry_ms[0], "card": card}
     say("main", **res)
+    res["dp_calls"] = [dp_call]  # for kernel_int16
     return res
 
 
@@ -1132,35 +1177,40 @@ def paf_agrees(paf: list, sam: list) -> int:
     return len(paf)
 
 
-def dp_at_size(mapper, codes, lens, cuda: bool, n_plain: int = 1024) -> dict:
+def dp_at_size(mapper, codes, lens, cuda: bool, n_plain: int = 1024) -> tuple:
     """One batch's DP inputs, as the step hands them to ``extd2_batch``:
-    the DP kernel and the backtrack kernel timed on all of them (as
+    the DP kernel of its route (in the lane state the call takes) and the
+    backtrack kernel timed on all of them (as
     kernel_vs_plain times a kernel), and both held against their plain
     versions on the first ``n_plain`` rows (exact), whose plain times are
-    reported for those rows."""
+    reported for those rows. Returns (the report, the captured call)."""
     from gdiet_tpu_torch.ops import dp, extd2
     from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
 
     seen = capture_calls(extd2, ["extd2_batch"], lambda: mapper.fused(codes, lens))["extd2_batch"]
     check(len(seen) == 1 and not seen[0][1].get("fold"), "the step made no unfolded DP call")
-    (q, t, ln, bd, params, L), _ = seen[0]
-    out, _, times = kernel_vs_plain(lambda: extd2.extd2_batch(q, t, ln, bd, params, L),
+    (q, t, ln, bd, params, L), kw = seen[0]
+    sd = kw.get("state_dtype", "int32")
+    check(sd == extd2.route_state_dtype(params, L),
+          f"the step's DP call at Lmax {L} has lane state {sd}")
+    out, _, times = kernel_vs_plain(lambda: extd2.extd2_batch(q, t, ln, bd, params, L,
+                                                              state_dtype=sd),
                                     lambda: None, cuda, plain_runs=1)
     bt, _, bt_times = kernel_vs_plain(lambda: extd2.backtrack_band(out[1], ln, ln, bd, L, L),
                                       lambda: None, cuda, plain_runs=1)
     n = min(n_plain, int(q.shape[0]))
     sub = (q[:n], t[:n], ln[:n], bd[:n])
     t0 = time.perf_counter()
-    plain = dp.extd2_batch(*sub, params, L)
+    plain = dp.extd2_batch(*sub, params, L, state_dtype=sd)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    err = check_equal(extd2.extd2_batch(*sub, params, L), plain, DP_OUTPUTS,
-                      f"extd2 at Lmax {L} on the step's DP inputs")
+    err = check_equal(extd2.extd2_batch(*sub, params, L, state_dtype=sd), plain, DP_OUTPUTS,
+                      f"the {sd} full-width DP at Lmax {L} on the step's DP inputs")
     t0 = time.perf_counter()
     bt_plain = backtrack_antidiag(plain[1], ln[:n], bd[:n], L)
     bt_plain_ms = (time.perf_counter() - t0) * 1e3
     bt_err = check_equal(extd2.backtrack_band(plain[1], ln[:n], ln[:n], bd[:n], L, L),
                          bt_plain, BT_OUTPUTS, f"backtrack_band at Lmax {L}")
-    res = {"Lmax": L, "lanes": dp.round16(L), "rows": int(q.shape[0]),
+    res = {"Lmax": L, "lanes": dp.round16(L), "rows": int(q.shape[0]), "state_dtype": sd,
            "live_rows": int((ln > 0).sum()), "kernel_ms": times["kernel_ms"],
            "kernel_ms_rounds": times["kernel_ms_rounds"], **dp_bound((q, t, ln, bd), out),
            "plain_rows": n, "plain_ms_on_plain_rows": plain_ms, "max_abs_err": err,
@@ -1168,7 +1218,7 @@ def dp_at_size(mapper, codes, lens, cuda: bool, n_plain: int = 1024) -> dict:
                                                                           int(q.shape[0])),
                          "plain_ms_on_plain_rows": bt_plain_ms, "max_abs_err": bt_err}}
     res["share_of_bound"] = res["bound_ms"] / times["kernel_ms"]
-    return res
+    return res, seen[0]
 
 
 def phase_generic(device, n_reads: int, card: str) -> dict:
@@ -1265,15 +1315,16 @@ def phase_generic(device, n_reads: int, card: str) -> dict:
     lines = regs_to_sam(mapper, reads, results[0])
     phases["sam_writer"] = (time.perf_counter() - t0) * 1e3
     check(lines == outs["md_cs"], "the batch's records differ from the CLI run's")
-    # extd2.cu and the backtrack at the generic widths: 256 lanes (this
-    # batch) and 512 (max_read_len 512, as the golden2 fixtures map)
-    dp_sizes = [dp_at_size(mapper, codes, lens, cuda)]
+    # the route's DP kernel and the backtrack at the generic widths: 256
+    # lanes (this batch) and 512 (max_read_len 512, as the golden2 fixtures
+    # map)
+    size256, call256 = dp_at_size(mapper, codes, lens, cuda)
     stats, cfg = mapper.stats, mapper.fused.cfg
     del mapper, results
     wide = ShortReadMapper(mi, mo, max_read_len=512, device=device)
     n512 = min(n_reads, GENERIC_DP512_READS)
     c512, l512 = wide.native.encode_batch([r.seq for r in reads[:n512]], 512)
-    dp_sizes.append(dp_at_size(wide, c512, l512, cuda))
+    size512, call512 = dp_at_size(wide, c512, l512, cuda)
     res.update({
         "reads_per_s": {tag: n_reads / w for tag, w in walls.items()}, "wall_s": walls,
         "records": len(outs["md_cs"]), "paf_lines_checked": n_paf,
@@ -1282,8 +1333,9 @@ def phase_generic(device, n_reads: int, card: str) -> dict:
         "retried_reads": stats.get("retried_reads", 0),
         "hit_budget": cfg.A, "vote_columns": 2 * (cfg.A + 1),
         "peak_device_bytes": peak, "peak_device_bytes_per_read": peak / n_reads,
-        "dp_at_size": dp_sizes, "card": card})
+        "dp_at_size": [size256, size512], "card": card})
     say("generic", **res)
+    res["dp_calls"] = [call256, call512]  # for kernel_int16
     return res
 
 
@@ -1333,26 +1385,30 @@ def dp_call_check(call, fold: bool, what: str) -> dict:
     check(bool(kw.get("fold")) == fold,
           f"{what} made no {'folded' if fold else 'unfolded'} DP call")
     check(tuple(params) == PARAMS, f"{what}'s scoring {params} is not {PARAMS}")
+    sd = kw.get("state_dtype", "int32")
+    check(sd == extd2.route_state_dtype(params, L, fold=fold),
+          f"{what}'s DP call has lane state {sd}")
     plain = dp_fold.extd2_fold if fold else dp.extd2_batch
-    got = extd2.extd2_batch(q, t, ln, bd, PARAMS, L, fold=fold)
-    name = "extd2_fold" if fold else "extd2"
-    dp_err = check_equal(got, plain(q, t, ln, bd, PARAMS, L), DP_OUTPUTS,
+    got = extd2.extd2_batch(q, t, ln, bd, PARAMS, L, fold=fold, state_dtype=sd)
+    name = ("extd2_fold" if fold else "extd2") + ("_i16" if sd == "int16" else "")
+    dp_err = check_equal(got, plain(q, t, ln, bd, PARAMS, L, None, None, sd), DP_OUTPUTS,
                          f"{name} on {what}'s DP inputs")
     bt_err = check_equal(extd2.backtrack_band(got[1], ln, ln, bd, L, L, fold=fold),
                          backtrack_antidiag(got[1], ln, bd, L, fold=fold), BT_OUTPUTS,
                          f"backtrack_band on {what}'s DP outputs")
     return {"step_dp_rows": int(q.shape[0]), "step_dp_live_rows": int((ln > 0).sum()),
-            "step_dp_max_abs_err": dp_err, "step_backtrack_max_abs_err": bt_err}
+            "step_dp_state_dtype": sd, "step_dp_max_abs_err": dp_err,
+            "step_backtrack_max_abs_err": bt_err}
 
 
-def step_dp_check(mapper, codes, lens, fold: bool) -> dict:
+def step_dp_check(mapper, codes, lens, fold: bool) -> tuple:
     """One batch's DP inputs, as the step hands them to ``extd2_batch``,
-    through ``dp_call_check``."""
+    through ``dp_call_check``. Returns (its report, the captured call)."""
     from gdiet_tpu_torch.ops import extd2
 
     seen = capture_calls(extd2, ["extd2_batch"], lambda: mapper.fused(codes, lens))["extd2_batch"]
     check(len(seen) == 1, f"the step made {len(seen)} DP calls")
-    return dp_call_check(seen[0], fold, "the step")
+    return dp_call_check(seen[0], fold, "the step"), seen[0]
 
 
 def per_phase(mapper, codes, lens, cuda: bool, finish) -> dict:
@@ -1505,7 +1561,7 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
     sync()
     wall = time.perf_counter() - t0
     unfold_launches, fold_launches, plain_calls, plain_fold_calls = (c.n for c in counts)
-    pe_counts = sr_counts("the PE path", cuda)
+    pe_counts = sr_counts("the PE path", cuda, sr_dp_kernel(MAIN_BUDGETS["max_read_len"], True))
     if cuda:
         check(fold_launches > 0, "the PE path launched no extd2_fold kernel")
         check(plain_fold_calls == 0 and plain_calls == 0,
@@ -1555,11 +1611,10 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
         (*state[:4], dev, *state[5:]), 0, fetched))
 
     # ---- the fold and backtrack kernels on the DP inputs the step gives them ----
-    step = step_dp_check(mapper, codes, lens, fold=True)
+    step, dp_call = step_dp_check(mapper, codes, lens, fold=True)
     res = {"pairs": n_pairs, "timed_pairs": P * n_timed, "batch_pairs": P,
            "pairs_per_s": P * n_timed / wall, "timed_wall_s": wall,
            "fallback_pairs": warm["fallback_reads"] + mapper.stats["fallback_reads"],
-           "extd2_fold_launches": fold_launches, "extd2_launches": unfold_launches,
            "plain_dp_calls": plain_calls, "plain_fold_calls": plain_fold_calls,
            **pe_counts, "fold_off_launches_and_plain_calls": unfold_counts,
            "pairs_both_mapped": both / n_pairs, "mapped_at_origin": near / len(mapped),
@@ -1567,6 +1622,7 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
            "oracle_pairs_equal": PE_ORACLE, "first_batch_equal_unfolded": True,
            "phase_ms": phases, "card": card}
     say("pe", **res)
+    res["dp_calls"] = [dp_call]  # for kernel_int16
     return res
 
 
@@ -1757,7 +1813,8 @@ def phase_golden_lr(card: str, device: str = "cuda") -> dict:
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for tag, args in (("hifi", HIFI_ARGS), ("ont", ONT_ARGS)):
-            n0, b0 = extd2.band_launches.n, extd2.backtrack_launches.n
+            n0, b0 = extd2.band_i16_launches.n, extd2.backtrack_launches.n
+            f0 = extd2.i16_launches.n
             path = pathlib.Path(tmp) / f"{tag}.sam"
             t0 = time.perf_counter()
             check(cli.main(["--device", device, *args, "-o", str(path), *inputs]) == 0,
@@ -1766,11 +1823,12 @@ def phase_golden_lr(card: str, device: str = "cuda") -> dict:
             same = sum(a == b for a, b in zip(mine, gold))
             check(mine == gold, f"golden_lr_{tag}.sam: {same}/{len(gold)} records equal "
                   f"({len(mine)} produced)")
-            check(device != "cuda" or (extd2.band_launches.n > n0
+            check(device != "cuda" or (extd2.band_i16_launches.n > n0
                                        and extd2.backtrack_launches.n > b0),
-                  f"the LR CLI ({tag}) launched no band or backtrack kernel")
+                  f"the LR CLI ({tag}) launched no int16 band or backtrack kernel")
             out[tag] = {"records": len(gold), "seconds": time.perf_counter() - t0,
-                        "band_launches": extd2.band_launches.n - n0,
+                        "band_i16_launches": extd2.band_i16_launches.n - n0,
+                        "full_width_i16_launches": extd2.i16_launches.n - f0,
                         "backtrack_launches": extd2.backtrack_launches.n - b0}
     say("golden_lr", **out, identical=True, card=card)
     return out
@@ -1828,27 +1886,34 @@ def lr_counts_reset() -> None:
 
     _count_stream_columns()
     _STREAM_COLUMN_CALLS["n"] = 0
-    for c in (extd2.band_launches, extd2.launches, extd2.backtrack_launches, vote.lr_launches,
+    for c in (extd2.band_launches, extd2.launches, extd2.band_i16_launches,
+              extd2.i16_launches, extd2.backtrack_launches, vote.lr_launches,
               dp_band.calls, dp.calls, device_step.backtrack_calls, lr_step.vote_calls):
         c.reset()
 
 
 def lr_counts(what: str, cuda: bool) -> dict:
     """The LR kernels' launches and their plain versions' calls since the
-    last reset; on the card the DP (band or full width), backtrack and vote
-    kernels must have run and no plain version."""
+    last reset; on the card the DP (band or full width, in the LR route's
+    lane state, int16: the int16 kernels, no int32 one), backtrack and
+    vote kernels must have run and no plain version."""
     from gdiet_tpu_torch.ops import dp, dp_band, extd2, vote
     from gdiet_tpu_torch.pipeline import device_step, lr_step
 
-    n = {"band_launches": extd2.band_launches.n, "full_width_launches": extd2.launches.n,
+    n = {"band_i16_launches": extd2.band_i16_launches.n,
+         "full_width_i16_launches": extd2.i16_launches.n,
+         "band_launches": extd2.band_launches.n, "full_width_launches": extd2.launches.n,
          "backtrack_launches": extd2.backtrack_launches.n,
          "vote_lr_launches": vote.lr_launches.n, "plain_band_calls": dp_band.calls.n,
          "plain_dp_calls": dp.calls.n, "plain_backtrack_calls": device_step.backtrack_calls.n,
          "plain_lr_vote_calls": lr_step.vote_calls.n,
          "stream_columns_calls": _STREAM_COLUMN_CALLS["n"]}
     if cuda:
-        check(n["band_launches"] + n["full_width_launches"] > 0 and n["backtrack_launches"] > 0
-              and n["vote_lr_launches"] > 0, f"{what} launched too few kernels: {n}")
+        check(n["band_i16_launches"] + n["full_width_i16_launches"] > 0
+              and n["backtrack_launches"] > 0 and n["vote_lr_launches"] > 0,
+              f"{what} launched too few kernels: {n}")
+        check(n["band_launches"] + n["full_width_launches"] == 0,
+              f"{what} launched an int32 DP kernel off its int16 route: {n}")
         plain = {k: v for k, v in n.items() if k.startswith(("plain", "stream")) and v}
         check(not plain, f"{what} called plain versions: {plain}")
     return n
@@ -1891,8 +1956,12 @@ def lr_dp_check(seen, what: str) -> dict:
     check(bool(windowed), f"{what} made no windowed DP call")
     (q, t, ln, bd, params, L), kw = min(windowed, key=lambda c: c[0][5])
     Lt, bb, U, tl = kw["Lt"], kw["band_budget"], kw["unroll"], kw["tlens"]
-    got = extd2.extd2_batch(q, t, ln, bd, params, L, tlens=tl, Lt=Lt, band_budget=bb, unroll=U)
-    ref = dp_band.extd2_band(q, t, ln, bd, params, L, tl, Lt, bb, U)
+    sd = kw.get("state_dtype", "int32")
+    check(sd == extd2.route_state_dtype(params, L, Lt, band_budget=bb, unroll=U),
+          f"{what}'s DP call has lane state {sd}")
+    got = extd2.extd2_batch(q, t, ln, bd, params, L, tlens=tl, Lt=Lt, band_budget=bb, unroll=U,
+                            state_dtype=sd)
+    ref = dp_band.extd2_band(q, t, ln, bd, params, L, tl, Lt, bb, U, sd)
     err = check_equal(got, ref, DP_OUTPUTS, f"{what}'s DP inputs")
     bt_err = check_equal(
         extd2.backtrack_band(got[1], ln, tl, bd, L, Lt, band_budget=bb, unroll=U),
@@ -1900,7 +1969,7 @@ def lr_dp_check(seen, what: str) -> dict:
                                        band_budget=bb, unroll=U),
         BT_OUTPUTS, f"{what}'s backtrack")
     return {"Lmax": L, "Lt": Lt, "rows": int(q.shape[0]), "live_rows": int((ln > 0).sum()),
-            "max_abs_err": err, "backtrack_max_abs_err": bt_err}
+            "state_dtype": sd, "max_abs_err": err, "backtrack_max_abs_err": bt_err}
 
 
 def capture_lr_votes(mapper, reads, n_rows: int = 1) -> dict:
@@ -2038,6 +2107,7 @@ def phase_lr(device, n_timed: int, genome_len: int, card: str, B: int = LR_BATCH
            "phase_ms": acc, "dp_calls_in_batch": len(seen), "step_dp": step_dp,
            "card": card}
     say("lr", **res)
+    res["dp_calls"] = seen  # for kernel_int16
     return res, capture_lr_votes(mapper, batches[1])
 
 
@@ -2153,7 +2223,185 @@ def phase_ont(device, n_timed: int, genome_len: int, card: str, B: int = ONT_BAT
            "mapped_reads": n_mapped, **counts, "phase_ms": phases,
            "dp_calls_in_batch": len(seen), "vote": vote_run, "card": card}
     say("ont", **res)
+    res["dp_calls"] = seen  # for kernel_int16
     return res
+
+
+# the int16 kernels of each layout, their launch counts' names in ops/extd2.py
+INT16_KERNELS = {"full": ("extd2_i16", "i16_launches"),
+                 "band": ("extd2_band_i16", "band_i16_launches"),
+                 "fold": ("extd2_fold_i16", "fold_i16_launches")}
+
+
+def dp16x2_ops(sass: dict) -> int:
+    """The 16x2 DPX instructions of a SASS histogram (sass_vi_ops): the VI*
+    opcodes with a U16 or S16 modifier (VIMNMX.U16x2, VIMNMX3.U16x2,
+    VIADDMNMX.S16x2)."""
+    return sum(v for k, v in sass["vi_opcodes"].items()
+               if {"U16", "S16"} & set(k.split(".")[1:]))
+
+
+def int16_run(call, what: str, plain: bool, reps: int | None = None) -> dict:
+    """One captured DP call through the int16 kernel of its layout and the
+    int32 kernel: outputs exact; with ``plain`` also against the plain int16
+    version (one run, timed). Times in turns (int32, int16, int16, int32),
+    each the median of KERNEL_ROUNDS rounds of ``reps`` launches; the bound
+    counts a packed 16x2 operation as two lane operations."""
+    import torch
+
+    from gdiet_tpu_torch.ops import dp, dp_band, dp_fold, extd2
+
+    (q, t, ln, bd, params, L), kw = call
+    route = kw.get("state_dtype", "int32")
+    kw = {k: v for k, v in kw.items() if k != "state_dtype"}
+    Lt = kw.get("Lt") or L
+    tl = kw.get("tlens")
+    windowed = kw.get("band_budget") is not None and dp_band.window_geometry(
+        kw["band_budget"], dp.round_up(Lt, 128), kw.get("unroll", dp_band.DP_UNROLL)) is not None
+    layout = "band" if windowed else "fold" if kw.get("fold") else "full"
+    name, count = INT16_KERNELS[layout]
+    counter = getattr(extd2, count)
+
+    def k32():
+        return extd2.extd2_batch(q, t, ln, bd, params, L, **kw)
+
+    def k16():
+        return extd2.extd2_batch(q, t, ln, bd, params, L, **kw, state_dtype="int16")
+
+    n0 = counter.n
+    got = k16()
+    check(counter.n == n0 + 1, f"{what}: extd2_batch(state_dtype='int16') launched no {name}")
+    err32 = check_equal(got, k32(), DP_OUTPUTS, f"{name} against the int32 kernel on {what}")
+    res = {"kernel": name, "route_state": route, "rows": int(q.shape[0]),
+           "live_rows": int((ln > 0).sum()), "Lmax": L, "Lt": Lt,
+           "band_budget": kw.get("band_budget"),
+           "max_abs_err_vs_int32": err32}
+    if plain:
+        t0 = time.perf_counter()
+        if layout == "band":
+            ref = dp_band.extd2_band(q, t, ln, bd, params, L, tl, Lt, kw["band_budget"],
+                                     kw["unroll"], "int16")
+        elif layout == "fold":
+            ref = dp_fold.extd2_fold(q, t, ln, bd, params, L, tl, kw.get("Lt"), "int16")
+        else:
+            ref = dp.extd2_batch(q, t, ln, bd, params, L, tl, kw.get("Lt"), "int16")
+        torch.cuda.synchronize()
+        res.update(max_abs_err=check_equal(got, ref, DP_OUTPUTS, f"{name} on {what}"),
+                   plain_ms=(time.perf_counter() - t0) * 1e3)
+        del ref
+    for _ in range(2):
+        k32()
+        k16()
+    ms = [rounds_ms(k32, reps), rounds_ms(k16, reps), rounds_ms(k16, reps), rounds_ms(k32, reps)]
+    res.update(int16_ms=float(np.mean(ms[1:3])), int32_ms=float(np.mean([ms[0], ms[3]])),
+               turns_ms=ms)
+    res["int16_over_int32"] = res["int16_ms"] / res["int32_ms"]
+    b = dp_bound((q, t, ln, bd, tl), got)
+    res.update(bound(b["bytes"], b["int_ops"] / 2), cells=b["cells"])
+    res["share_of_bound"] = res["bound_ms"] / res["int16_ms"]
+    return res
+
+
+def int16_err(report: dict, kernel: str) -> int:
+    """The largest difference of ``kernel`` against its plain version and
+    the int32 kernel over phase kernel_int16's runs (0)."""
+    return max(max(r.get("max_abs_err", 0), r["max_abs_err_vs_int32"])
+               for runs in report["runs"].values() for r in runs if r["kernel"] == kernel)
+
+
+def phase_kernel_int16(card: str, calls: dict, built=None) -> dict:
+    """Each int16 kernel against the int32 kernel of its layout and its
+    plain int16 version on the DP calls the paths made (``calls``: {path:
+    [(args, kwargs), ...]} as the main, generic, pe, lr and ont phases
+    captured them): the SE step's full width (160 lanes; extd2_i16.cu's
+    warp route, off the int16 route), the generic step's at 256 and 512
+    lanes (the plain version on the 512-lane call, 8,192 rows), the PE
+    step's fold (5,120 rows; extd2_fold_i16.cu), each DP call of one HiFi
+    batch (extd2_band_i16.cu; the full-width (512, 1024) bucket, where the
+    batch has one, extd2_i16.cu's block route) and the ONT batch's (32768,
+    34048) chunk. All outputs exact, against the plain version once per
+    HiFi and ONT bucket shape (the ONT chunk's plain run takes minutes).
+    Times in turns against int32, bounds (a packed 16x2 operation counts
+    as two lane operations), shares; with ``built`` ptxas registers and
+    spills and the 16x2 DPX instructions of each kernel's SASS (> 0).
+    Where a path's route takes int16 (the lane state of its captured
+    call), the int16 kernel must not be slower there than int32 beyond the
+    spread of the int32 rounds (1%); the ratio of the int32-routed calls is
+    reported. The route's other short-read widths, 128 and 192 lanes, and
+    the LR route's full-width (512, 1024) bucket are timed on seeded
+    rows."""
+    import torch
+
+    from gdiet_tpu_torch.ops import dp_band
+    from gdiet_tpu_torch.ops.extd2 import route_state_dtype
+
+    t_phase = time.perf_counter()
+
+    def first_of_shape(cs):
+        """Whether each call is the first of its (Lmax, Lt) shape."""
+        seen = set()
+        for (a, kw) in cs:
+            shape = (a[5], kw.get("Lt"))
+            yield shape not in seen
+            seen.add(shape)
+
+    runs = {"se": [int16_run(calls["se"][0], "the SE step's DP call", True)],
+            "generic": [int16_run(c, f"the generic step's DP call at Lmax {c[0][5]}",
+                                  c[0][5] == 512)
+                        for c in calls["generic"]],
+            "pe": [int16_run(calls["pe"][0], "the PE step's DP call", True)]}
+    hifi = calls["hifi"]
+    check(any(c[1].get("band_budget") is not None
+              and dp_band.band_shape(c[0][5], c[1]["Lt"], c[1]["band_budget"],
+                                     c[1]["unroll"])[2] is not None for c in hifi),
+          "the HiFi batch made no windowed DP call")
+    runs["hifi"] = [int16_run(c, f"the HiFi batch's DP call {i}", plain)
+                    for i, (c, plain) in enumerate(zip(hifi, first_of_shape(hifi)))]
+    t0 = time.perf_counter()
+    runs["ont"] = [int16_run(c, f"the ONT batch's DP call {i}", plain, reps=2)
+                   for i, (c, plain) in enumerate(zip(calls["ont"], first_of_shape(calls["ont"])))]
+    ont_s = time.perf_counter() - t0
+    # the route's other short-read widths, on seeded rows at the SE
+    # batch's size
+    runs["widths"] = []
+    for L in (128, 192):
+        Q, T, lens, band = dp_pairs(KERNEL_SHAPE["N"], L, L - 10)
+        call = (tuple(torch.from_numpy(a).cuda() for a in (Q, T, lens, band)) + (PARAMS, L),
+                {"fold": False, "state_dtype": route_state_dtype(PARAMS, L)})
+        runs["widths"].append(int16_run(call, f"seeded rows at Lmax {L}", False))
+    # the LR route's full-width bucket (512, 1024) at map-hifi's default
+    # band 1000, where the window does not engage (extd2_i16.cu's block
+    # route), on seeded windows as phase kernel_band runs it
+    Q, T, lens, tlens = band_windows(64, 512, 1024, seed=5)
+    args = tuple(torch.from_numpy(a).cuda() for a in (Q, T, lens, np.full(64, 1000, np.int32)))
+    call = (args + (LR_PARAMS, 512),
+            {"tlens": torch.from_numpy(tlens).cuda(), "Lt": 1024, "band_budget": 1000,
+             "unroll": dp_band.LR_UNROLL,
+             "state_dtype": route_state_dtype(LR_PARAMS, 512, 1024, band_budget=1000,
+                                              unroll=dp_band.LR_UNROLL)})
+    runs["lr_full_width"] = [int16_run(call, "seeded windows at the (512, 1024) bucket", True)]
+    out = {"runs": runs, "ont_seconds": ont_s, "seconds": time.perf_counter() - t_phase}
+    routed = {}
+    for path, rs in runs.items():
+        out[f"{path}_int16_over_int32"] = (sum(r["int16_ms"] for r in rs)
+                                           / sum(r["int32_ms"] for r in rs))
+        on_route = [r for r in rs if r["route_state"] == "int16"]
+        if on_route:
+            routed[path] = (sum(r["int16_ms"] for r in on_route)
+                            / sum(r["int32_ms"] for r in on_route))
+    if built:
+        for name, _ in INT16_KERNELS.values():
+            sass = sass_vi_ops(built[name][0])
+            out[name] = {"ptxas": ptxas_info(built[name][2]), "sass": sass,
+                         "dpx_16x2": dp16x2_ops(sass)}
+    out["card"] = card
+    say("kernel_int16", **out)
+    for path, ratio in routed.items():
+        check(ratio < 1.01, f"the {path} path routes its DP to int16, but int16 / int32 "
+              f"= {ratio:.3f} on those calls")
+    for name, _ in INT16_KERNELS.values():
+        check(not built or out[name]["dpx_16x2"] > 0, f"no 16x2 DPX instruction in {name}'s SASS")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2517,18 +2765,27 @@ def main(argv=None) -> int:
             "a mesh of distinct cards needs 2 or more (neither a pass nor a failure)")
     phase_multihost(card)
     phase_profile("cuda", BENCH_B, card)
-    phase_generic("cuda", GENERIC_READS, card)
+    gen = phase_generic("cuda", GENERIC_READS, card)
     phase_golden_pe(card)
     pe = phase_pe("cuda", PE_PAIRS, PE_TIMED, GENOME_LEN, card)
     kb = phase_kernel_band("cuda", card, built=built)
-    phase_golden_lr(card)
+    glr = phase_golden_lr(card)
     lr, lr_votes = phase_lr("cuda", LR_TIMED, GENOME_LEN, card)
     kvl = phase_kernel_vote_lr("cuda", card, lr_votes, built=built)
     del lr_votes
     mesh_lr = phase_mesh_lr("cuda", card)
     ont = phase_ont("cuda", ONT_TIMED, GENOME_LEN, card)
+    k16 = phase_kernel_int16(card, {"se": m["dp_calls"], "generic": gen["dp_calls"],
+                                    "pe": pe["dp_calls"], "hifi": lr["dp_calls"],
+                                    "ont": ont["dp_calls"]}, built)
     src = "gdiet_tpu_torch/csrc/"
     hifi = kb["runs"][0]  # band 500: the HiFi workload's budget
+    # the generic step's 512-lane call: on extd2_i16's route (the SE width
+    # is not), held against its plain version
+    k16_full = next(r for r in k16["runs"]["generic"] if "plain_ms" in r)
+    k16_pe = k16["runs"]["pe"][0]
+    k16_band = next(r for r in k16["runs"]["hifi"]
+                    if r["kernel"] == "extd2_band_i16" and "plain_ms" in r)
     kv_main = kv["runs"][0]  # the main phase's stream (M = 130, K = 2)
     kvl1, kvl2 = kvl["round1"], kvl["round2"]  # the HiFi batch's stream (M = 1,026)
     bound_keys = ("bound_ms", "bound_by")
@@ -2543,12 +2800,33 @@ def main(argv=None) -> int:
          **{x: k[x] for x in bound_keys}, "library_ms": None},
         {"name": "extd2_band", "route": "cuda", "source": src + "extd2_band.cu",
          "replaces": "gdiet_tpu/ops/dp_pallas.py:170",
-         "launches": lr["band_launches"],
-         "max_abs_err": max([r["max_abs_err"] for r in kb["runs"]]
-                            + [lr["step_dp"]["max_abs_err"],
-                               mesh_lr["step_dp"]["max_abs_err"]]),
+         "launches": lr["band_launches"] + ont["band_launches"],
+         "max_abs_err": max([r["max_abs_err"] for r in kb["runs"]]),
          "ms": hifi["kernel_ms"], "plain_ms": hifi["plain_ms"],
          **{x: hifi[x] for x in bound_keys}, "library_ms": None},
+        # the int16 lane state: ms, plain_ms and the bound on the paths'
+        # captured calls (kernel_int16), launches on the routes that take them
+        {"name": "extd2_i16", "route": "cuda", "source": src + "extd2_i16.cu",
+         "replaces": "gdiet_tpu/ops/dp_pallas.py:183",
+         "launches": (sum(r["full_width_i16_launches"] for r in (lr, ont, *glr.values()))
+                      + sum(c["extd2_i16_launches"]
+                            for c in gen["launches_and_plain_calls"].values())),
+         "max_abs_err": int16_err(k16, "extd2_i16"),
+         "ms": k16_full["int16_ms"], "plain_ms": k16_full["plain_ms"],
+         **{x: k16_full[x] for x in bound_keys}, "library_ms": None},
+        {"name": "extd2_band_i16", "route": "cuda", "source": src + "extd2_band_i16.cu",
+         "replaces": "gdiet_tpu/ops/dp_pallas.py:183",
+         "launches": sum(r["band_i16_launches"] for r in (lr, ont, *glr.values())),
+         "max_abs_err": max(int16_err(k16, "extd2_band_i16"), lr["step_dp"]["max_abs_err"],
+                            mesh_lr["step_dp"]["max_abs_err"]),
+         "ms": k16_band["int16_ms"], "plain_ms": k16_band["plain_ms"],
+         **{x: k16_band[x] for x in bound_keys}, "library_ms": None},
+        {"name": "extd2_fold_i16", "route": "cuda", "source": src + "extd2_fold_i16.cu",
+         "replaces": "gdiet_tpu/ops/dp_pallas.py:428",
+         "launches": pe["extd2_fold_i16_launches"],  # 0: the PE route keeps int32
+         "max_abs_err": int16_err(k16, "extd2_fold_i16"),
+         "ms": k16_pe["int16_ms"], "plain_ms": k16_pe["plain_ms"],
+         **{x: k16_pe[x] for x in bound_keys}, "library_ms": None},
         {"name": "extd2_fold", "route": "cuda", "source": src + "extd2_fold.cu",
          "replaces": "gdiet_tpu/ops/dp_pallas.py:419",
          "launches": pe["extd2_fold_launches"],

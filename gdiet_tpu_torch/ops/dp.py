@@ -4,9 +4,15 @@ Port of ``gdiet_tpu/ops/dp.py::extd2_batch`` (ksw_extd2's Suzuki-Kasahara
 difference recurrence, GDiet-ShortReads/ksw2_extd2_sse.c:34-402, evaluated
 over anti-diagonals with [N, T] int32 lanes; see that module's docstring for
 the 16-lane stale-block behaviour it replicates). It is the reference for the
-CUDA kernel in ``csrc/extd2.cu`` and what ``ops/extd2.py`` runs for tensors
-on the CPU. ``calls`` counts its invocations, so a GPU run can show that
-its main path never came here.
+CUDA kernels in ``csrc/extd2.cu`` and ``csrc/extd2_i16.cu`` and what
+``ops/extd2.py`` runs for tensors on the CPU. ``calls`` counts its
+invocations, so a GPU run can show that its main path never came here.
+
+``state_dtype`` is the counterpart of ``extd2_batch_pallas``'s parameter
+(``gdiet_tpu/ops/dp_pallas.py``): "int16" keeps the seven lane-state
+tensors in ``torch.int16`` (int16 arithmetic, wrapping as the TPU kernel's
+does) and the per-row H0 and score in int32. ``safe_state_dtype`` says
+when that is exact; "int16" outside its bound raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -47,6 +53,28 @@ def cigars_from_ops(ops, fin_i, fin_j, lens) -> list:
         run.reverse()
         cigars.append(run)
     return cigars
+
+
+def safe_state_dtype(params) -> str:
+    """"int16" when the scoring provably fits the 16-bit lane state, else
+    "int32" (dp_pallas.py:140): the lane values of the difference
+    formulation are bounded by a few gap costs (ksw2_extd2_sse.c:34), and
+    a 4x safety bound must still fit int16."""
+    a, b, q, e, q2, e2 = (int(p) for p in params)
+    return "int16" if 4 * (a + b + q + e + q2 + e2) < 32767 else "int32"
+
+
+def state_dtype_of(params, state_dtype: str) -> torch.dtype:
+    """The torch dtype of the lane state for ``state_dtype`` ("int32" or
+    "int16"); "int16" with scoring outside ``safe_state_dtype``'s bound
+    raises ValueError (the assert of dp_pallas.py:794), it never falls back
+    to int32."""
+    if state_dtype not in ("int32", "int16"):
+        raise ValueError(f"state_dtype must be 'int32' or 'int16', not {state_dtype!r}")
+    if state_dtype == "int16" and safe_state_dtype(params) != "int16":
+        raise ValueError(f"state_dtype='int16' is not exact for the scoring {tuple(params)}: "
+                         "4*(a+b+q+e+q2+e2) must stay below 32767")
+    return torch.int16 if state_dtype == "int16" else torch.int32
 
 
 def round_up(x: int, m: int) -> int:
@@ -100,11 +128,12 @@ def band_geometry(lens, tlens, band, R: int, T: int):
 
 
 def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
-                Lt: int | None = None):
+                Lt: int | None = None, state_dtype: str = "int32"):
     """Returns (score [N] i32, dirs [N, R, T] u8, offs [N, R] i32,
     off_ends [N, R] i32) with R = Lmax+Lt-1 and T = Lt rounded up to 16,
     exactly as ``gdiet_tpu.ops.dp.extd2_batch``. Rows with lens == 0 score
-    NEG_INF."""
+    NEG_INF. ``state_dtype``: the lane state's type (see the module)."""
+    sdt = state_dtype_of(params, state_dtype)
     calls.n += 1
     N = query.shape[0]
     dev = query.device
@@ -121,12 +150,12 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
     w = band.to(i32)
     lanes = torch.arange(T, dtype=i32, device=dev)[None, :]
 
-    def full(v):
-        return torch.full((N, T), v, dtype=i32, device=dev)
+    def full(v, dtype=sdt):
+        return torch.full((N, T), v, dtype=dtype, device=dev)
 
     u, v, x, y = full(-(q + e)), full(-(q + e)), full(-(q + e)), full(-(q + e))
     x2, y2, s = full(-(q2 + e2)), full(-(q2 + e2)), full(0)
-    sf = full(0)
+    sf = full(0, i32)
     sf[:, : target.shape[1]] = target.to(i32)
     qpad = torch.zeros((N, TQ), dtype=i32, device=dev)
     qpad[:, :Lmax] = query.to(i32)
@@ -137,7 +166,7 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
     last_st = zeros_n - 1
     last_en = zeros_n - 1
     score = torch.full((N,), NEG_INF, dtype=i32, device=dev)
-    col0 = torch.zeros((N, 1), dtype=i32, device=dev)
+    col0 = torch.zeros((N, 1), dtype=sdt, device=dev)
     dirs = torch.empty((N, R, T), dtype=torch.uint8, device=dev)
     offs = torch.empty((N, R), dtype=i32, device=dev)
     off_ends = torch.empty((N, R), dtype=i32, device=dev)
@@ -175,7 +204,7 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
             qpad[:, torch.clamp(qi, 0, TQ - 1).to(torch.int64)], 0,
         )
         nmask = (sf == 4) | (qv == 4)
-        sval = torch.where(sf == qv, a, -b)
+        sval = torch.where(sf == qv, a, -b).to(sdt)
         sval = torch.where(nmask, -e2, sval)
         s = torch.where(in_s, sval, s)
 
@@ -232,7 +261,7 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
         lt_new = torch.where(both, torch.where(d0gt, lt, lt + 1),
                              torch.where(lt_in, lt, lt + 1))
         if r == 0:
-            H0_new = v[:, 0] - (q + e)
+            H0_new = v[:, 0].to(i32) - (q + e)
             lt_new = zeros_n
         H0 = torch.where(live, H0_new, H0)
         last_H0_t = torch.where(live, lt_new, last_H0_t)

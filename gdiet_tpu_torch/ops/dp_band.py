@@ -19,9 +19,10 @@ wavefronts.
   clip their lane into the window;
 - band clamps use T = round128(Lt).
 
-It is the reference for ``csrc/extd2_band.cu`` and what ``ops/extd2.py``
-runs for CPU tensors when the window engages. ``calls`` counts its
-invocations.
+It is the reference for ``csrc/extd2_band.cu`` (and, with
+``state_dtype="int16"``, ``csrc/extd2_band_i16.cu``) and what
+``ops/extd2.py`` runs for CPU tensors when the window engages. ``calls``
+counts its invocations. ``state_dtype`` is ``ops/dp.py``'s.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 
 from gdiet_tpu_torch.ops import LaunchCount
 from gdiet_tpu_torch.ops.dp import (NEG_INF, band_geometry, boundary_u,
-                                    derive_scoring, round_up)
+                                    derive_scoring, round_up, state_dtype_of)
 
 DP_UNROLL = 4  # wavefronts per Pallas grid step (the short-read default)
 LR_UNROLL = 8  # the long-read buckets' unroll (pipeline/longread.py:569)
@@ -96,7 +97,7 @@ def backtrack_tile(r: int, i: int, K: int, Wd: int, T: int, WB: int | None = Non
 
 
 def extd2_band(query, target, lens, band, params, Lmax: int, tlens, Lt: int,
-               band_budget: int, unroll: int = LR_UNROLL):
+               band_budget: int, unroll: int = LR_UNROLL, state_dtype: str = "int32"):
     """Windowed DP of N (query, target) windows, as
     ``extd2_batch_pallas(..., band_budget=band_budget, unroll=unroll)``.
 
@@ -107,7 +108,8 @@ def extd2_band(query, target, lens, band, params, Lmax: int, tlens, Lt: int,
     nor is any row past its last wavefront qlen+tlen-2 (its dirs are 0
     from wavefront qlen+tlen-1 on, where ``csrc/extd2_band.cu`` ends the
     candidate), so the replay runs over the live rows up to the last live
-    wavefront only."""
+    wavefront only. ``state_dtype``: the lane state's type (ops/dp.py)."""
+    sdt = state_dtype_of(params, state_dtype)
     calls.n += 1
     T, R, WB = band_shape(Lmax, Lt, band_budget, unroll)
     if WB is None:
@@ -122,13 +124,13 @@ def extd2_band(query, target, lens, band, params, Lmax: int, tlens, Lt: int,
         sub = (query[rows], target[rows], lens[rows].to(torch.int32),
                tlens[rows].to(torch.int32), band[rows].to(torch.int32))
         score[rows], dirs[rows] = _replay(*sub, params, Lmax, T, R, WB,
-                                          band_budget, unroll)
+                                          band_budget, unroll, sdt)
     offs, off_ends = band_geometry(lens, tlens, band, R, T)
     return score, dirs, offs, off_ends
 
 
 def _replay(query, target, qlen, tlen, w, params, Lmax: int, T: int, R: int,
-            WB: int, band_budget: int, unroll: int):
+            WB: int, band_budget: int, unroll: int, sdt=torch.int32):
     """The windowed kernel's grid steps over rows that are all live at some
     wavefront; returns (score [n], dirs [n, R, WB])."""
     N = query.shape[0]
@@ -138,14 +140,14 @@ def _replay(query, target, qlen, tlen, w, params, Lmax: int, T: int, R: int,
     qe, qe2 = q + e, q2 + e2
     win = torch.arange(WB, dtype=i32, device=dev)[None, :]
 
-    def full(v):
-        return torch.full((N, T), v, dtype=i32, device=dev)
+    def full(v, dtype=sdt):
+        return torch.full((N, T), v, dtype=dtype, device=dev)
 
     # the kernel's full-width lane scratch; the window is read from it and
     # written back once per grid step
     U_s, V_s, X_s, Y_s = full(-qe), full(-qe), full(-qe), full(-qe)
     X2_s, Y2_s, S_s = full(-qe2), full(-qe2), full(0)
-    tpad = full(0)
+    tpad = full(0, i32)
     tpad[:, : target.shape[1]] = target.to(i32)
     qry = query.to(i32)
 
@@ -191,7 +193,7 @@ def _replay(query, target, qlen, tlen, w, params, Lmax: int, T: int, R: int,
             span16 = (en0 - st0) // 16 * 16 + 16
             in_s = ((lanes >= st0[:, None]) & (lanes < (st0 + span16)[:, None])
                     & live[:, None])
-            sval = torch.where(sf == qv, a, -b).to(i32)
+            sval = torch.where(sf == qv, a, -b).to(sdt)
             sval = torch.where((sf == 4) | (qv == 4), -e2, sval)
             s = torch.where(in_s, sval, s)
 
@@ -249,7 +251,7 @@ def _replay(query, target, qlen, tlen, w, params, Lmax: int, T: int, R: int,
             lt_new = torch.where(both, torch.where(d0gt, lt, lt + 1),
                                  torch.where(lt_in, lt, lt + 1))
             if r == 0:  # lo == 0 here: window lane 0 is lane 0
-                H0_new = v[:, 0] - qe
+                H0_new = v[:, 0].to(i32) - qe
                 lt_new = torch.zeros_like(lt)
             H0 = torch.where(live, H0_new, H0)
             lt = torch.where(live, lt_new, lt)

@@ -19,8 +19,11 @@ clamps use the nominal width ``Tn = round128(Lt)`` as the Pallas kernel
 does; the stale lanes between Lt and Tn depend on it. The row/pass split is
 ``_extd2_fold``'s, so the raw folded dirs compare byte for byte.
 
-It is the reference for ``csrc/extd2_fold.cu`` and what ``ops/extd2.py``
-runs for CPU tensors with ``fold=True``. ``calls`` counts its invocations.
+It is the reference for ``csrc/extd2_fold.cu`` (and, with
+``state_dtype="int16"``, ``csrc/extd2_fold_i16.cu``) and what
+``ops/extd2.py`` runs for CPU tensors with ``fold=True``. ``calls`` counts
+its invocations. ``state_dtype`` is ``ops/dp.py``'s; it also sets the row
+block of the split, as the lane state's bytes set ``_extd2_fold``'s.
 """
 
 from __future__ import annotations
@@ -49,31 +52,35 @@ def fold_geometry(Lmax: int, Lt: int | None = None, unroll: int = DP_UNROLL):
     return H, T, Tn
 
 
-def fold_split(N: int, T: int) -> tuple[int, int, int]:
+def fold_split(N: int, T: int, state_dtype: str = "int32") -> tuple[int, int, int]:
     """(NB, Nrows, C): ``_extd2_fold``'s row block from its VMEM budget
-    (int32 state), kernel rows and candidate passes (dp_pallas.py:893-904);
-    C passes of Nrows rows hold the N candidates, a drain pass follows."""
-    NB = max(8, min(192, (10 << 19) // ((7 * 4 + 8) * T) // 16 * 16))
+    (7 lane-state arrays of 4 or 2 bytes a lane), kernel rows and candidate
+    passes (dp_pallas.py:893-904); C passes of Nrows rows hold the N
+    candidates, a drain pass follows."""
+    isz = 2 if state_dtype == "int16" else 4
+    NB = max(8, min(192, (10 << 19) // ((7 * isz + 8) * T) // 16 * 16))
     Nrows = round_up(max(1, -(-N // FOLD_PASSES)), NB)
     C = max(1, -(-N // Nrows))
     return NB, Nrows, C
 
 
 def extd2_fold(query, target, lens, band, params, Lmax: int, tlens=None,
-               Lt: int | None = None):
+               Lt: int | None = None, state_dtype: str = "int32"):
     """Folded DP of N (query, target) windows.
 
     query [N, Lmax] u8, target [N, Lt] u8, lens/band/tlens [N] int. Returns
     (score [N] i32, dirs [(C+1)*H, Nrows, T] u8 in the raw folded layout,
     offs [N, 2H], off_ends [N, 2H] i32): wavefront r of candidate n = c*Nrows
-    + k is dirs[c*H + r, k, lane + (FOLD_GAP if r >= H else 0)]."""
+    + k is dirs[c*H + r, k, lane + (FOLD_GAP if r >= H else 0)].
+    ``state_dtype``: the lane state's type (ops/dp.py)."""
+    sdt = dp.state_dtype_of(params, state_dtype)
     calls.n += 1
     N = query.shape[0]
     dev = query.device
     if Lt is None:
         Lt = Lmax
     H, T, Tn = fold_geometry(Lmax, Lt)
-    _, Nrows, C = fold_split(N, T)
+    _, Nrows, C = fold_split(N, T, state_dtype)
     P = C + 1
     GAP = FOLD_GAP
     a, b, q, e, q2, e2, long_thres, long_diff = dp.derive_scoring(params)
@@ -101,7 +108,7 @@ def extd2_fold(query, target, lens, band, params, Lmax: int, tlens=None,
     col = lambda t: t[:, None]  # noqa: E731  per-row scalar -> column
 
     def full(val):
-        return torch.full((Nrows, T), val, dtype=i32, device=dev)
+        return torch.full((Nrows, T), val, dtype=sdt, device=dev)
 
     u, v, x, y = full(-qe), full(-qe), full(-qe), full(-qe)
     x2, y2, s = full(-qe2), full(-qe2), full(0)
@@ -121,7 +128,7 @@ def extd2_fold(query, target, lens, band, params, Lmax: int, tlens=None,
         """Roll lanes up by GAP; lanes < GAP take ``low`` (a value or an
         [Nrows, GAP] tensor)."""
         if not torch.is_tensor(low):
-            low = torch.full((Nrows, GAP), low, dtype=i32, device=dev)
+            low = torch.full((Nrows, GAP), low, dtype=arr.dtype, device=dev)
         return torch.cat([low, arr[:, :-GAP]], dim=1)
 
     for p in range(P):
@@ -190,7 +197,7 @@ def extd2_fold(query, target, lens, band, params, Lmax: int, tlens=None,
             qv_b = qb[:, torch.clamp(ib[0], 0, Lmax - 1).long()]
             qv = torch.where(qi_oka, qv_a, torch.where(qi_okb, qv_b, 0))
             nmask = (tmix == 4) | (qv == 4)
-            sval = torch.where(tmix == qv, a, -b)
+            sval = torch.where(tmix == qv, a, -b).to(sdt)
             sval = torch.where(nmask, -e2, sval)
             s = torch.where(in_s, sval, s)
 
@@ -259,7 +266,7 @@ def extd2_fold(query, target, lens, band, params, Lmax: int, tlens=None,
                 walks.append((inc, torch.where(stay, lt, lt + 1)))
             (inc_a, lt_new_a), (inc_b, lt_new_b) = walks
             if r == 0:
-                H0a = torch.where(livea, v[:, 0] - qe, H0a)
+                H0a = torch.where(livea, v[:, 0].to(i32) - qe, H0a)
                 lta = torch.where(livea, 0, lta)
             else:
                 H0a = torch.where(livea, H0a + inc_a, H0a)

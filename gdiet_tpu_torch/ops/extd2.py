@@ -1,5 +1,7 @@
 """Wrappers of the Hopper kernels in ``csrc/``: the DP (``extd2.cu``,
-``extd2_fold.cu``, ``extd2_band.cu``) and the windowed backtrack
+``extd2_fold.cu``, ``extd2_band.cu`` and their int16 lane-state
+counterparts ``extd2_i16.cu``, ``extd2_fold_i16.cu``,
+``extd2_band_i16.cu``) and the windowed backtrack
 (``backtrack_band.cu``); it builds and binds every ``csrc/`` kernel (the
 vote kernels' wrappers are in ``ops/vote.py``).
 
@@ -9,7 +11,11 @@ With ``band_budget`` set and a lane window narrower than round128(Lt)
 (``ops/dp_band.py::window_geometry``) it returns what
 ``ops/dp_band.py::extd2_band`` returns; with ``fold=True`` what
 ``ops/dp_fold.py::extd2_fold`` returns (the raw folded dirs layout);
-otherwise what ``ops/dp.py::extd2_batch`` returns. ``backtrack_band`` walks
+otherwise what ``ops/dp.py::extd2_batch`` returns. Its ``state_dtype``
+("int32" or "int16") is ``extd2_batch_pallas``'s: with "int16" the lane
+state is 16-bit (the ``*_i16.cu`` kernels pack two lanes in each 32-bit
+register), exact under ``dp.safe_state_dtype``'s bound, and outside it
+raises ``ValueError``. ``backtrack_band`` walks
 the dirs of any of the three layouts: the short-read step's (full width or
 folded) and the long-read buckets' (banded or full width).
 
@@ -17,7 +23,9 @@ For CUDA tensors each launches its hand-written kernel (built with ``nvcc``
 for ``sm_90a`` at first use and bound with ctypes); for CPU tensors it runs
 the plain torch version. There is no fallback from one to the other: a CUDA
 call either launches or raises. ``launches``, ``fold_launches``,
-``band_launches`` and ``backtrack_launches`` count kernel launches.
+``band_launches``, their int16 counterparts ``i16_launches``,
+``fold_i16_launches``, ``band_i16_launches``, and ``backtrack_launches``
+count kernel launches.
 """
 
 from __future__ import annotations
@@ -39,7 +47,8 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 # one shared library per csrc/<name>.cu (the vote kernels' wrappers:
 # ops/vote.py); csrc/*.cuh are the headers they share
-KERNELS = ("extd2", "extd2_fold", "extd2_band", "backtrack_band", "vote_scan", "vote_lr")
+KERNELS = ("extd2", "extd2_fold", "extd2_band", "extd2_i16", "extd2_fold_i16",
+           "extd2_band_i16", "backtrack_band", "vote_scan", "vote_lr")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -48,6 +57,9 @@ launches = LaunchCount()
 fold_launches = LaunchCount()
 band_launches = LaunchCount()
 backtrack_launches = LaunchCount()
+i16_launches = LaunchCount()
+fold_i16_launches = LaunchCount()
+band_i16_launches = LaunchCount()
 _libs: dict = {}
 
 
@@ -103,10 +115,12 @@ def build_all(names=KERNELS, verbose: bool = False) -> dict:
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _HALVES = [_P] * 6 + [_I64]  # fk, fq, fok, rk, rq, rok, their row stride
 # each library's C entry points and their arguments
+_DP_ARGS = {"extd2": [_P] * 7 + [_I64] * 5 + [_I] * 8 + [_P],
+            "extd2_fold": [_P] * 7 + [_I64] * 8 + [_I] * 8 + [_P],
+            "extd2_band": [_P] * 7 + [_I64] * 6 + [_I] * 10 + [_P]}
 ENTRIES = {
-    "extd2": {"gdiet_extd2": [_P] * 7 + [_I64] * 5 + [_I] * 8 + [_P]},
-    "extd2_fold": {"gdiet_extd2_fold": [_P] * 7 + [_I64] * 8 + [_I] * 8 + [_P]},
-    "extd2_band": {"gdiet_extd2_band": [_P] * 7 + [_I64] * 6 + [_I] * 10 + [_P]},
+    **{name: {f"gdiet_{name}": args} for name, args in _DP_ARGS.items()},
+    **{f"{name}_i16": {f"gdiet_{name}_i16": args} for name, args in _DP_ARGS.items()},
     "backtrack_band": {"gdiet_backtrack_band": [_P] * 7 + [_I64] * 8 + [_I] * 2 + [_P]},
     "vote_scan": {"gdiet_vote_scan": _HALVES + [_P] * 14 + [_I64] * 2 + [_I] + [_P]},
     "vote_lr": {"gdiet_vote_lr": _HALVES + [_P] * 10 + [_I64] * 2 + [_I] + [_P],
@@ -147,9 +161,61 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+# the DP libraries and launch counts of each lane-state type
+_DP_ROUTES = {"int32": {"extd2": ("extd2", launches),
+                        "extd2_fold": ("extd2_fold", fold_launches),
+                        "extd2_band": ("extd2_band", band_launches)},
+              "int16": {"extd2": ("extd2_i16", i16_launches),
+                        "extd2_fold": ("extd2_fold_i16", fold_i16_launches),
+                        "extd2_band": ("extd2_band_i16", band_i16_launches)}}
+
+
+# (round16(Lmax), round16(Lt)) of the full-width calls at which the int16
+# kernel measured faster than the int32 one in turns on an H100
+# (chip_smoke.py's kernel_int16, PERF.md §6): the warp route at 128, 192,
+# 256 and 512 lanes (0.81-0.92x), the block route at the LR (512, 1024)
+# bucket (0.83x). At 160 lanes it took 1.03x (the warp route's last 64-lane
+# slot is half empty); every other shape is unmeasured and keeps int32.
+I16_FULL_WIDTH_SHAPES = frozenset({(128, 128), (192, 192), (256, 256), (512, 512),
+                                   (512, 1024)})
+
+
+def route_state_dtype(params, Lmax: int, Lt: int | None = None, fold: bool = False,
+                      band_budget: int | None = None,
+                      unroll: int = dp_band.DP_UNROLL) -> str:
+    """The lane state a path's DP call takes (``extd2_batch``'s
+    ``state_dtype`` for the same arguments): int16 where
+    ``dp.safe_state_dtype`` allows it and the card measured the int16
+    kernel of the call's layout faster, else int32. The banded window:
+    int16 (0.75-0.86x at the HiFi buckets at band 500 and the ONT chunk at
+    band 1300). The full width: int16 at ``I16_FULL_WIDTH_SHAPES``. The
+    fold: int32 (0.99x and 1.02x in two runs: no faster)."""
+    if fold or dp.safe_state_dtype(params) != "int16":
+        return "int32"
+    Lt = Lmax if Lt is None else Lt
+    if band_budget is not None and dp_band.window_geometry(
+            band_budget, dp.round_up(Lt, 128), unroll) is not None:
+        return "int16"
+    return "int16" if (dp.round16(Lmax), dp.round16(Lt)) in I16_FULL_WIDTH_SHAPES else "int32"
+
+
+def _launch(state_dtype: str, layout: str, dev, *args) -> None:
+    """Launch the DP kernel of ``layout`` ("extd2", "extd2_fold" or
+    "extd2_band") for the lane-state type on ``dev``'s current stream;
+    raise on a failed launch, count a good one."""
+    name, count = _DP_ROUTES[state_dtype][layout]
+    lib = _library(name)
+    with torch.cuda.device(dev):
+        rc = getattr(lib, f"gdiet_{name}")(*args, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    count.n += 1
+
+
 def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
                 Lt: int | None = None, fold: bool = False,
-                band_budget: int | None = None, unroll: int = dp_band.DP_UNROLL):
+                band_budget: int | None = None, unroll: int = dp_band.DP_UNROLL,
+                state_dtype: str = "int32"):
     """Banded dual affine-gap extension of N (query, target) windows.
 
     query [N, Lmax] u8, target [N, Lt] u8, lens/band/tlens [N] i32 (qlen <=
@@ -160,9 +226,13 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
     Lmax+Lt-1, round16(Lt)], offs, off_ends) as ops/dp.py returns them;
     ``fold=True``: (score [N], dirs [(C+1)*H, Nrows, T] u8, offs, off_ends
     [N, 2H]) as ops/dp_fold.py returns them. The window and the fold
-    exclude each other, as in extd2_batch_pallas."""
+    exclude each other, as in extd2_batch_pallas. ``state_dtype`` "int16"
+    launches the layout's int16 kernel (CPU tensors: the plain version with
+    int16 state); outside ``dp.safe_state_dtype``'s bound it raises
+    ValueError."""
     if Lt is None:
         Lt = Lmax
+    dp.state_dtype_of(params, state_dtype)  # raises outside the bound
     windowed = (band_budget is not None and dp_band.window_geometry(
         band_budget, dp.round_up(Lt, 128), unroll) is not None)
     if windowed and fold:
@@ -171,9 +241,9 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
         if windowed:
             return dp_band.extd2_band(query, target, lens, band, params, Lmax,
                                       lens if tlens is None else tlens, Lt,
-                                      band_budget, unroll)
+                                      band_budget, unroll, state_dtype)
         plain = dp_fold.extd2_fold if fold else dp.extd2_batch
-        return plain(query, target, lens, band, params, Lmax, tlens, Lt)
+        return plain(query, target, lens, band, params, Lmax, tlens, Lt, state_dtype)
     if query.device.type != "cuda":
         raise ValueError(f"extd2: unsupported device {query.device}")
     N = query.shape[0]
@@ -188,21 +258,23 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
             tlens.data_ptr() if tlens is not None else None, band.data_ptr())
     scoring = dp.derive_scoring(params)
     if windowed:
-        return _extd2_band(query, target, lens, tlens if tlens is not None else lens,
-                           band, scoring, Lmax, Lt, band_budget, unroll)
+        tl = tlens if tlens is not None else lens
+        T, R, WB = dp_band.band_shape(Lmax, Lt, band_budget, unroll)
+        score = torch.empty((N,), dtype=torch.int32, device=dev)
+        dirs = torch.empty((N, R, WB), dtype=torch.uint8, device=dev)
+        if N:
+            _launch(state_dtype, "extd2_band", dev, *ptrs[:3], tl.data_ptr(), ptrs[4],
+                    score.data_ptr(), dirs.data_ptr(), N, Lmax, Lt, T, R, WB,
+                    band_budget, unroll, *scoring)
+        offs, off_ends = dp.band_geometry(lens, tl, band, R, T)
+        return score, dirs, offs, off_ends
     if fold:
         H, T, Tn = dp_fold.fold_geometry(Lmax, Lt)
-        _, Nrows, C = dp_fold.fold_split(N, T)
+        _, Nrows, C = dp_fold.fold_split(N, T, state_dtype)
         score = torch.empty(((C + 1) * Nrows,), dtype=torch.int32, device=dev)
         dirs = torch.empty(((C + 1) * H, Nrows, T), dtype=torch.uint8, device=dev)
-        lib = _library("extd2_fold")
-        with torch.cuda.device(dev):
-            rc = lib.gdiet_extd2_fold(*ptrs, score.data_ptr(), dirs.data_ptr(),
-                                      N, Lmax, Lt, T, Tn, H, Nrows, C,
-                                      *scoring, _stream(dev))
-        if rc != 0:
-            raise RuntimeError(f"extd2_fold kernel launch failed: CUDA error {rc}")
-        fold_launches.n += 1
+        _launch(state_dtype, "extd2_fold", dev, *ptrs, score.data_ptr(), dirs.data_ptr(),
+                N, Lmax, Lt, T, Tn, H, Nrows, C, *scoring)
         offs, off_ends = dp.band_geometry(lens, tlens, band, 2 * H, Tn)
         return score[Nrows:][:N], dirs, offs, off_ends
     T = dp.round16(Lt)
@@ -210,36 +282,8 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
     score = torch.empty((N,), dtype=torch.int32, device=dev)
     dirs = torch.empty((N, R, T), dtype=torch.uint8, device=dev)
     if N:
-        lib = _library("extd2")
-        with torch.cuda.device(dev):
-            rc = lib.gdiet_extd2(*ptrs, score.data_ptr(), dirs.data_ptr(),
-                                 N, Lmax, Lt, T, R, *scoring, _stream(dev))
-        if rc != 0:
-            raise RuntimeError(f"extd2 kernel launch failed: CUDA error {rc}")
-        launches.n += 1
-    offs, off_ends = dp.band_geometry(lens, tlens, band, R, T)
-    return score, dirs, offs, off_ends
-
-
-def _extd2_band(query, target, lens, tlens, band, scoring, Lmax: int, Lt: int,
-                band_budget: int, unroll: int):
-    """Launch ``csrc/extd2_band.cu`` (the checks are extd2_batch's)."""
-    T, R, WB = dp_band.band_shape(Lmax, Lt, band_budget, unroll)
-    N = query.shape[0]
-    dev = query.device
-    score = torch.empty((N,), dtype=torch.int32, device=dev)
-    dirs = torch.empty((N, R, WB), dtype=torch.uint8, device=dev)
-    if N:
-        lib = _library("extd2_band")
-        with torch.cuda.device(dev):
-            rc = lib.gdiet_extd2_band(
-                query.data_ptr(), target.data_ptr(), lens.data_ptr(),
-                tlens.data_ptr(), band.data_ptr(), score.data_ptr(),
-                dirs.data_ptr(), N, Lmax, Lt, T, R, WB, band_budget, unroll,
-                *scoring, _stream(dev))
-        if rc != 0:
-            raise RuntimeError(f"extd2_band kernel launch failed: CUDA error {rc}")
-        band_launches.n += 1
+        _launch(state_dtype, "extd2", dev, *ptrs, score.data_ptr(), dirs.data_ptr(),
+                N, Lmax, Lt, T, R, *scoring)
     offs, off_ends = dp.band_geometry(lens, tlens, band, R, T)
     return score, dirs, offs, off_ends
 
@@ -271,7 +315,10 @@ def backtrack_band(dirs, lens, tlens, band, Lmax: int, Lt: int,
             raise ValueError("backtrack_band: the banded lane window and the fold "
                              "exclude each other")
         H, Wd, _ = dp_fold.fold_geometry(Lmax, Lt)
-        _, Nrows, C = dp_fold.fold_split(N, Wd)
+        # the DP's row split depends on its lane-state type: take it from
+        # the dirs (C + 1 passes of H wavefronts, Nrows kernel rows)
+        Nrows = dirs.shape[1] if dirs.dim() == 3 else 0
+        C = max(1, -(-N // Nrows)) if Nrows else 1
         shape, R = ((C + 1) * H, Nrows, Wd), 2 * H
     else:
         WB = (dp_band.window_geometry(band_budget, T, unroll)

@@ -16,7 +16,8 @@ byte-identical to ``fused_map_step``'s, so ``native.sr_finish_batch`` and
 point, ``runtime.py``) folds the DP where the banded lane window cannot
 engage, the JAX step's condition, resolved once per mapper.
 Unlike the JAX step, which never folds off the TPU, the port folds on the
-CPU too, through the plain fold version.
+CPU too, through the plain fold version. ``extd2.route_state_dtype`` picks
+the DP's lane state (int16 or int32; the outputs are bit-equal either way).
 
 uint64 values are int64 bit patterns (``gdiet_tpu_torch/u64.py``). TPU
 gather workarounds (one-hot matmul selects, chunk-row window gathers) are
@@ -825,8 +826,9 @@ def fused_map_step(codes, lens, tables: dict, cfg: StepConfig,
     band2 = bandN[sel].contiguous()
     _mark("windows")
 
-    score2, dirs, _, _ = extd2.extd2_batch(qb2, tb2, len2, band2, cfg.params, L,
-                                           fold=cfg.dp_fold)
+    score2, dirs, _, _ = extd2.extd2_batch(
+        qb2, tb2, len2, band2, cfg.params, L, fold=cfg.dp_fold,
+        state_dtype=extd2.route_state_dtype(cfg.params, L, fold=cfg.dp_fold))
     _mark("dp")
     rank_c = torch.clamp(rank, 0, N2 - 1)
     score = torch.where(need, score2[rank_c], 0).reshape(B, K)

@@ -8,9 +8,12 @@ once per batch. The host accepts round-2 candidates, builds the
 concatenation graph and the segment windows (``oracle/longread.py`` on the
 ``-t`` pool). Every segment's banded DP runs in length buckets on the
 device: ``ops/extd2.py::extd2_batch`` with the band budget and an unroll of
-8 (the banded lane window, ``csrc/extd2_band.cu`` on the card) and
+8 (the banded lane window, ``csrc/extd2_band_i16.cu`` on the card) and
 ``backtrack_band`` (``csrc/backtrack_band.cu``), one packed u8 result per
-chunk. The host run-length-encodes the ops (``native.rle_ops``) and
+chunk. The DP's lane state is ``extd2.route_state_dtype``'s: int16 for
+every windowed bucket and the full-width (512, 1024) one where
+``safe_state_dtype`` allows it (every preset), the outputs bit-equal to
+int32's. The host run-length-encodes the ops (``native.rle_ops``) and
 finishes each read (``finalize_read``).
 
 The device is explicit: on the card every bucket runs the kernels, on the
@@ -396,8 +399,10 @@ class LongReadMapper:
         q, t, ql, tl, bd = (torch.from_numpy(a).to(dev) for a in (Q, T, qlens, tlens, band))
         bw = int(self.mo.bw)
         params = self.cfg.params
+        sd = extd2.route_state_dtype(params, lq, lt, band_budget=bw, unroll=LR_UNROLL)
         score, dirs, _, _ = extd2.extd2_batch(q, t, ql, bd, params, lq, tlens=tl,
-                                              Lt=lt, band_budget=bw, unroll=LR_UNROLL)
+                                              Lt=lt, band_budget=bw, unroll=LR_UNROLL,
+                                              state_dtype=sd)
         self._mark("dp")
         ops, fin_i, fin_j = extd2.backtrack_band(dirs, ql, tl, bd, lq, lt,
                                                  band_budget=bw, unroll=LR_UNROLL)
