@@ -1,0 +1,181 @@
+#!/usr/bin/env python3
+"""Ablations of csrc/extd2_band_i16.cu on the card, timed in turns.
+
+    python3 band_ablation.py [--prev DIR] [--shapes hifi,ont]
+
+Needs one CUDA GPU and nvcc. Builds the checkout's
+``gdiet_tpu_torch/csrc/extd2_band_i16.cu`` and variants of it made by
+textual edits of that source, each by its own ``nvcc``, and runs each on
+seeded long-read windows (``chip_smoke.band_windows``) at the long-read
+paths' shapes, at the cluster size ``ops/extd2.py::band_cluster_size``
+picks there:
+
+- ``source``: the checkout's kernel (through ``extd2_batch``);
+- ``no_walk``: the walker warp does not walk and no tap is stored: what the
+  H0 walk costs on top of the DP (its scores are not the kernel's; its dirs
+  are, and are checked);
+- ``old_query``: the substitution scores from two bounds-checked byte
+  loads and compares a pair, as the kernel's one-block predecessor read
+  them, instead of one 16-bit load of the reversed query and masks (exact);
+- ``earlier`` (``--prev DIR`` with an earlier ``extd2_band_i16.cu`` whose
+  entry point takes no cluster size): that source (exact).
+
+Each is exact against the int32 kernel (``csrc/extd2_band.cu``) where its
+function is the kernel's, and timed in turns (the list up, then down; each
+the median of 5 rounds of launches, CUDA events). Prints one JSON line per
+shape and the card's ``nvidia-smi`` name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import pathlib
+import subprocess
+import sys
+
+sys.modules.setdefault("jax", None)  # the port must not need JAX
+
+ROOT = pathlib.Path(__file__).resolve().parent
+ONT_PARAMS = (2, 4, 4, 2, 24, 1)  # the map-ont preset's scoring
+# name: (rows, Lmax, Lt, band budget, scoring, live rows)
+SHAPES = {
+    "hifi128_2048": (128, 2048, 3072, 500, "hifi", 123),
+    "hifi64_4096": (64, 4096, 5120, 500, "hifi", 62),
+    "ont32": (32, 32768, 34048, 1300, "ont", 19),
+}
+# the textual edits of each variant: (what is replaced, what replaces it)
+OLD_QUERY = """      {
+        const int i0 = r + 1 - lane0, i1 = i0 - 1;
+        const int q0 = (i0 >= 0 && i0 < qlen) ? ((qe16[i0 + kQPad] & 0xff) ^ 4) : 0;
+        const int q1 = (i1 >= 0 && i1 < qlen) ? ((qe16[i1 + kQPad] & 0xff) ^ 4) : 0;
+        const int t0 = (tcode[k] & 0xff) ^ 4, t1 = ((tcode[k] >> 16) & 0xff) ^ 4;
+        const int s0 = (t0 == 4 || q0 == 4) ? -sc.e2 : (t0 == q0 ? sc.a : -sc.b);
+        const int s1 = (t1 == 4 || q1 == 4) ? -sc.e2 : (t1 == q1 ? sc.a : -sc.b);
+        sv[k] = pack2(s0, s1);
+      }"""
+VARIANTS = {
+    "no_walk": [("      if (walks && e > 0) {", "      if (false) {"),
+                ("      if (r_end > 0) walk(b_prev, b);", "      if (false) walk(b_prev, b);"),
+                ("        if (d < (unsigned)kTaps) {", "        if (false) {")],
+    "old_query": [("""      sv[k] = subst_pair(qe16[__vimin_s32_relu(r + 1 - lane0 + kQPad, qhi)], tcode[k], tn[k],
+                         sa, sb, se2);""", OLD_QUERY)],
+}
+
+
+def variant_source(src: str, edits) -> str:
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise SystemExit(f"band_ablation: the source no longer has {old[:60]!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def build(name: str, src: pathlib.Path, out_dir: pathlib.Path):
+    from gdiet_tpu_torch.ops import extd2
+
+    so = out_dir / f"{name}.so"
+    proc = subprocess.Popen([extd2._nvcc(), *extd2.NVCC_FLAGS, "-o", str(so), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return name, proc, so
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--prev", type=pathlib.Path, default=None,
+                    help="a directory with an earlier extd2_band_i16.cu (no cluster size)")
+    ap.add_argument("--shapes", default=",".join(SHAPES), help="which of " + ", ".join(SHAPES))
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("[band_ablation] no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from gdiet_tpu_torch.ops import dp, dp_band, extd2
+
+    print(cs.card_line(), flush=True)
+    out_dir = extd2.BUILD_DIR / "ablation"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    source = (extd2.CSRC / "extd2_band_i16.cu").read_text()
+    procs = []
+    for name, edits in VARIANTS.items():
+        path = out_dir / f"{name}.cu"  # beside a copy of the shared header
+        path.write_text(variant_source(source, edits))
+        (out_dir / "dp_pair.cuh").write_text((extd2.CSRC / "dp_pair.cuh").read_text())
+        procs.append(build(name, path, out_dir))
+    if args.prev is not None:
+        procs.append(build("earlier", args.prev / "extd2_band_i16.cu", out_dir))
+    extd2.build_all(["extd2_band_i16", "extd2_band"])
+    libs = {}
+    for name, proc, so in procs:
+        log, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed on {name}:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        lib.gdiet_extd2_band_i16.restype = ctypes.c_int
+        lib.gdiet_extd2_band_i16.argtypes = (extd2._DP_ARGS["extd2_band"] if name == "earlier"
+                                             else extd2.ENTRIES["extd2_band_i16"]
+                                             ["gdiet_extd2_band_i16"])
+        libs[name] = lib
+
+    U = dp_band.LR_UNROLL
+    for shape in args.shapes.split(","):
+        N, L, Lt, bb, preset, live = SHAPES[shape]
+        params = cs.LR_PARAMS if preset == "hifi" else ONT_PARAMS
+        Q, T, lens, tlens = cs.band_windows(N, L, Lt)
+        lens[live:] = 0  # padding rows, as the long-read chunks pad to a power of two
+        band = np.full(N, bb, np.int32)
+        q, t, ln, bd, tl = (torch.from_numpy(a).cuda() for a in (Q, T, lens, band, tlens))
+        Tp, R, WB = dp_band.band_shape(L, Lt, bb, U)
+        C = extd2.band_i16_plan(N, L, WB, q.device)["cluster"]
+
+        def direct(lib, with_cluster):
+            def run():
+                score = torch.empty((N,), dtype=torch.int32, device=q.device)
+                dirs = torch.empty((N, R, WB), dtype=torch.uint8, device=q.device)
+                rc = lib.gdiet_extd2_band_i16(
+                    q.data_ptr(), t.data_ptr(), ln.data_ptr(), tl.data_ptr(), bd.data_ptr(),
+                    score.data_ptr(), dirs.data_ptr(), N, L, Lt, Tp, R, WB, bb, U,
+                    *dp.derive_scoring(params), *((C,) if with_cluster else ()),
+                    torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"band_ablation: launch failed, CUDA error {rc}")
+                return score, dirs
+            return run
+
+        fns = {"source": lambda: extd2.extd2_batch(q, t, ln, bd, params, L, tlens=tl, Lt=Lt,
+                                                   band_budget=bb, unroll=U,
+                                                   state_dtype="int16")[:2]}
+        fns.update({name: direct(lib, name != "earlier") for name, lib in libs.items()})
+        ref = extd2.extd2_batch(q, t, ln, bd, params, L, tlens=tl, Lt=Lt, band_budget=bb,
+                                unroll=U)
+        exact = {}
+        for name, fn in fns.items():
+            score, dirs = fn()
+            exact[name] = {"dirs": bool(torch.equal(dirs, ref[1])),
+                           "score": bool(torch.equal(score, ref[0]))}
+            if not exact[name]["dirs"] or (name != "no_walk" and not exact[name]["score"]):
+                raise SystemExit(f"band_ablation: {name} differs from the int32 kernel on {shape}")
+        names = list(fns)
+        turns = {name: [] for name in names}
+        reps = 2 if L > 8192 else 10
+        for name in names + names[::-1]:
+            fns[name]()
+            turns[name].append(cs.rounds_ms(fns[name], reps))
+        steps = cs.live_steps(lens, tlens)
+        print(json.dumps({"shape": shape, "rows": N, "live_rows": live, "Lmax": L, "Lt": Lt,
+                          "band_budget": bb, "cluster": C, "live_wavefronts": steps,
+                          "ms": {k: float(np.mean(v)) for k, v in turns.items()},
+                          "us_per_live_wavefront": {k: float(np.mean(v)) * 1e3 / steps
+                                                    for k, v in turns.items()},
+                          "turns_ms": turns, "exact": exact}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, str(ROOT))
+    sys.exit(main())

@@ -36,7 +36,8 @@ JAX. Phases, each printing one line:
    facts as in phase 2.
    With ``--prev DIR`` (earlier sources of ``extd2.cu`` and
    ``extd2_fold.cu``): both kernels timed in turns against the earlier
-   sources on the same inputs, outputs equal (phase ``prev``).
+   sources on the same inputs, outputs equal (phase ``prev``; an earlier
+   ``extd2_band_i16.cu`` in DIR: phase 21).
 4. kernel_vote: the vote kernel ``vote_scan`` (one thread per read, the
    strand halves read in place in column tiles staged through shared
    memory, the K slots in shared memory) against the plain loop on the
@@ -192,7 +193,20 @@ JAX. Phases, each printing one line:
    against int32 (median of 5 rounds), bounds (a packed 16x2 operation
    counts as two lane operations), shares, ptxas registers and spills, and
    the 16x2 DPX instructions of each SASS (> 0). Where a route takes int16
-   the int16 kernel must not be slower there than int32 (1%).
+   the int16 kernel must not be slower there than int32 (1%). Each
+   windowed call also reports how ``extd2_band_i16.cu`` (one candidate over
+   a thread-block cluster) runs it: the cluster size
+   ``extd2.band_cluster_size`` picks, the resident clusters of that size
+   (``cudaOccupancyMaxActiveClusters``), live rows, warps a block, us per
+   live wavefront; and the kernel at every cluster size it takes (C = 1, 2,
+   4 and, at the ONT width, 8), exact against the int32 kernel and, where
+   the call ran it, the plain int16 version (the ONT chunk's plain run
+   once, each C held against its stored result), each C timed in turns.
+21. prev_band (``--prev DIR`` with an earlier ``extd2_band_i16.cu``, one
+   block a candidate): the earlier source and the checkout's on each
+   windowed int16 call of the HiFi batch and on the ONT chunk, score and
+   dirs exact, timed in turns (earlier, current, current, earlier); the
+   checkout's not slower beyond 1%.
 
 Then a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before the last line is printed. Without a
@@ -829,8 +843,10 @@ def phase_kernel_vote(device, card: str, n_main: int = BENCH_B,
 
 def build_prev(prev: pathlib.Path) -> dict:
     """``--prev DIR``: the earlier sources in DIR among extd2.cu,
-    extd2_fold.cu (same C entry points as the checkout's) and vote_scan.cu
-    (the earlier entry point, the concatenated stream), each built by its own
+    extd2_fold.cu (same C entry points as the checkout's), vote_scan.cu
+    (the earlier entry point, the concatenated stream) and
+    extd2_band_i16.cu (the earlier entry point, one block a candidate: the
+    checkout's arguments without the cluster size), each built by its own
     nvcc, all started together, beside the checkout's. Returns {name:
     (library, ptxas log, path)}."""
     import ctypes
@@ -842,7 +858,7 @@ def build_prev(prev: pathlib.Path) -> dict:
                                .hexdigest()[:12])
     build.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("extd2", "extd2_fold", "vote_scan"):
+    for name in ("extd2", "extd2_fold", "vote_scan", "extd2_band_i16"):
         if not (prev / f"{name}.cu").exists():
             continue
         so = build / f"{name}.so"
@@ -859,6 +875,10 @@ def build_prev(prev: pathlib.Path) -> dict:
             lib = ctypes.CDLL(str(so))
             lib.gdiet_vote_scan.restype = ctypes.c_int
             lib.gdiet_vote_scan.argtypes = [P] * 18 + [I64] * 2 + [I] + [P]
+        elif name == "extd2_band_i16":  # the int32 window's arguments
+            lib = ctypes.CDLL(str(so))
+            lib.gdiet_extd2_band_i16.restype = ctypes.c_int
+            lib.gdiet_extd2_band_i16.argtypes = extd2._DP_ARGS["extd2_band"]
         else:
             lib = extd2.bind(so, name)
         out[name] = (lib, log, so)
@@ -906,7 +926,7 @@ def phase_prev(libs: dict, card: str, source: str) -> dict:
         out[tag] = {"rows": N, "earlier_ms": old_ms, "current_ms": new_ms,
                     "speedup": old_ms / new_ms, "turns_ms": times, "max_abs_err": err}
     dp_libs = [n for n in ("extd2", "extd2_fold") if n in libs]
-    out["earlier_ptxas"] = {n: ptxas_info(libs[n][1]) for n in libs}
+    out["earlier_ptxas"] = {n: ptxas_info(libs[n][1]) for n in libs if n != "extd2_band_i16"}
     out["earlier_sass"] = {n: sass_vi_ops(libs[n][2]) for n in dp_libs}
     say("prev", **out, source=source, card=card)
     return out
@@ -2246,7 +2266,8 @@ def int16_run(call, what: str, plain: bool, reps: int | None = None) -> dict:
     int32 kernel: outputs exact; with ``plain`` also against the plain int16
     version (one run, timed). Times in turns (int32, int16, int16, int32),
     each the median of KERNEL_ROUNDS rounds of ``reps`` launches; the bound
-    counts a packed 16x2 operation as two lane operations."""
+    counts a packed 16x2 operation as two lane operations. A windowed call
+    also reports how ``extd2_band_i16.cu`` runs it (``band_i16_report``)."""
     import torch
 
     from gdiet_tpu_torch.ops import dp, dp_band, dp_fold, extd2
@@ -2271,7 +2292,8 @@ def int16_run(call, what: str, plain: bool, reps: int | None = None) -> dict:
     n0 = counter.n
     got = k16()
     check(counter.n == n0 + 1, f"{what}: extd2_batch(state_dtype='int16') launched no {name}")
-    err32 = check_equal(got, k32(), DP_OUTPUTS, f"{name} against the int32 kernel on {what}")
+    ref32 = k32()
+    err32 = check_equal(got, ref32, DP_OUTPUTS, f"{name} against the int32 kernel on {what}")
     res = {"kernel": name, "route_state": route, "rows": int(q.shape[0]),
            "live_rows": int((ln > 0).sum()), "Lmax": L, "Lt": Lt,
            "band_budget": kw.get("band_budget"),
@@ -2288,7 +2310,11 @@ def int16_run(call, what: str, plain: bool, reps: int | None = None) -> dict:
         torch.cuda.synchronize()
         res.update(max_abs_err=check_equal(got, ref, DP_OUTPUTS, f"{name} on {what}"),
                    plain_ms=(time.perf_counter() - t0) * 1e3)
-        del ref
+    else:
+        ref = None
+    if layout == "band":
+        res["band_i16"] = band_i16_report(call, what, ref32, ref, reps)
+    del ref, ref32
     for _ in range(2):
         k32()
         k16()
@@ -2296,10 +2322,118 @@ def int16_run(call, what: str, plain: bool, reps: int | None = None) -> dict:
     res.update(int16_ms=float(np.mean(ms[1:3])), int32_ms=float(np.mean([ms[0], ms[3]])),
                turns_ms=ms)
     res["int16_over_int32"] = res["int16_ms"] / res["int32_ms"]
+    if layout == "band":
+        res["band_i16"]["us_per_live_wavefront"] = (res["int16_ms"] * 1e3
+                                                    / max(res["band_i16"]["live_wavefronts"], 1))
     b = dp_bound((q, t, ln, bd, tl), got)
     res.update(bound(b["bytes"], b["int_ops"] / 2), cells=b["cells"])
     res["share_of_bound"] = res["bound_ms"] / res["int16_ms"]
     return res
+
+
+def band_i16_report(call, what: str, ref32, ref, reps: int | None) -> dict:
+    """How ``extd2_band_i16.cu`` runs one windowed call: the cluster size
+    the rule picks (``extd2.band_i16_plan``), the clusters of that size the
+    card holds at once, live rows, warps a block and the longest
+    candidate's live wavefronts; then the kernel at every cluster size it
+    takes (``extd2.band_cluster_sizes``), each exact against the int32
+    kernel's outputs (``ref32``) and the plain int16 version's (``ref``,
+    where this call ran it), timed in turns (the sizes up, then down; each
+    the median of KERNEL_ROUNDS rounds of ``reps`` launches) with us per
+    live wavefront."""
+    from gdiet_tpu_torch.ops import dp_band, extd2
+
+    (q, t, ln, bd, params, L), kw = call
+    Lt, bb, U = kw["Lt"], kw["band_budget"], kw["unroll"]
+    tl = kw.get("tlens")
+    tl = ln if tl is None else tl
+    N = int(q.shape[0])
+    WB = dp_band.band_shape(L, Lt, bb, U)[2]
+    plan = extd2.band_i16_plan(N, L, WB, q.device)
+    steps = live_steps(ln.cpu().numpy(), tl.cpu().numpy())
+    sizes = extd2.band_cluster_sizes(WB)
+    fns, errs = {}, {}
+    for C in sizes:
+        def fn(C=C):
+            return extd2._extd2_band_cuda(q, t, ln, bd, params, L, tl, Lt, bb, U, "int16",
+                                          cluster=C)
+        got = fn()
+        errs[C] = max([check_equal(got, ref32, DP_OUTPUTS,
+                                   f"extd2_band_i16 at C = {C} against int32 on {what}")]
+                      + ([check_equal(got, ref, DP_OUTPUTS,
+                                      f"extd2_band_i16 at C = {C} against plain on {what}")]
+                         if ref is not None else []))
+        del got
+        fns[C] = fn
+    turns = {C: [] for C in sizes}
+    for C in sizes + sizes[::-1]:
+        turns[C].append(rounds_ms(fns[C], reps))
+    return {**plan, "live_rows": int((ln > 0).sum()), "live_wavefronts": steps,
+            "clusters": {str(C): {"ms": float(np.mean(turns[C])), "turns_ms": turns[C],
+                                  "us_per_live_wavefront": float(np.mean(turns[C])) * 1e3
+                                  / max(steps, 1),
+                                  "max_abs_err": errs[C],
+                                  "held_against_plain": ref is not None}
+                         for C in sizes}}
+
+
+def phase_prev_band(lib, card: str, calls: dict) -> dict:
+    """``--prev DIR`` with an earlier ``extd2_band_i16.cu`` (one block a
+    candidate, ``build_prev``): on each windowed DP call of the HiFi batch
+    and the ONT batch (``calls``) the earlier source and the checkout's
+    (through ``extd2_batch``, at the cluster size the rule picks) give the
+    same score and dirs (exact) and are timed in turns (earlier, current,
+    current, earlier; each the median of KERNEL_ROUNDS rounds). The
+    checkout's must not be slower beyond 1%."""
+    import torch
+
+    from gdiet_tpu_torch.ops import dp, dp_band, extd2
+
+    runs = []
+    for path, cs in calls.items():
+        for i, ((q, t, ln, bd, params, L), kw) in enumerate(cs):
+            Lt, bb, U = kw.get("Lt") or L, kw.get("band_budget"), kw.get("unroll")
+            if (kw.get("state_dtype") != "int16" or bb is None
+                    or dp_band.window_geometry(bb, dp.round_up(Lt, 128), U) is None):
+                continue
+            tl = kw.get("tlens")
+            tl = ln if tl is None else tl
+            N = int(q.shape[0])
+            T, R, WB = dp_band.band_shape(L, Lt, bb, U)
+
+            def old():
+                score = torch.empty((N,), dtype=torch.int32, device=q.device)
+                dirs = torch.empty((N, R, WB), dtype=torch.uint8, device=q.device)
+                rc = lib.gdiet_extd2_band_i16(
+                    q.data_ptr(), t.data_ptr(), ln.data_ptr(), tl.data_ptr(), bd.data_ptr(),
+                    score.data_ptr(), dirs.data_ptr(), N, L, Lt, T, R, WB, bb, U,
+                    *dp.derive_scoring(params), torch.cuda.current_stream().cuda_stream)
+                check(rc == 0, f"the earlier extd2_band_i16 failed: CUDA error {rc}")
+                return score, dirs
+
+            def new():
+                return extd2.extd2_batch(q, t, ln, bd, params, L, **kw)
+
+            a, b = old(), new()
+            err = check_equal(a, b[:2], DP_OUTPUTS[:2],
+                              f"earlier and current extd2_band_i16 on the {path} call {i}")
+            del a, b
+            reps = 2 if L > 8192 else None
+            times = [rounds_ms(f, reps) for f in (old, new, new, old)]
+            old_ms, new_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+            runs.append({"path": path, "call": i, "rows": N, "live_rows": int((ln > 0).sum()),
+                         "Lmax": L, "Lt": Lt, "band_budget": bb,
+                         "cluster": extd2.band_i16_plan(N, L, WB, q.device)["cluster"],
+                         "earlier_ms": old_ms, "current_ms": new_ms,
+                         "speedup": old_ms / new_ms, "turns_ms": times, "max_abs_err": err})
+    check(bool(runs), "no windowed int16 DP call to time against the earlier source")
+    out = {"runs": runs, "card": card}
+    say("prev_band", **out)
+    for r in runs:
+        check(r["current_ms"] <= 1.01 * r["earlier_ms"],
+              f"extd2_band_i16 slower than the earlier source on the {r['path']} call "
+              f"{r['call']}: {r['current_ms']:.3f} against {r['earlier_ms']:.3f} ms")
+    return out
 
 
 def int16_err(report: dict, kernel: str) -> int:
@@ -2731,8 +2865,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="On-card smoke run of gdiet_tpu_torch.")
     ap.add_argument("--prev", type=pathlib.Path, default=None,
-                    help="a directory with earlier extd2.cu, extd2_fold.cu or vote_scan.cu "
-                         "sources: time them in turns against the checkout's")
+                    help="a directory with earlier extd2.cu, extd2_fold.cu, vote_scan.cu or "
+                         "extd2_band_i16.cu sources: time them in turns against the checkout's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA device: this smoke run needs a GPU", file=sys.stderr)
@@ -2751,7 +2885,7 @@ def main(argv=None) -> int:
     prev = build_prev(args.prev) if args.prev is not None else {}
     kv = phase_kernel_vote("cuda", card, built=built,
                            prev=prev["vote_scan"][0] if "vote_scan" in prev else None)
-    if prev:
+    if "extd2" in prev or "extd2_fold" in prev:
         phase_prev(prev, card, str(args.prev))
     phase_golden("cuda")
     phase_api("cuda", card)
@@ -2778,6 +2912,9 @@ def main(argv=None) -> int:
     k16 = phase_kernel_int16(card, {"se": m["dp_calls"], "generic": gen["dp_calls"],
                                     "pe": pe["dp_calls"], "hifi": lr["dp_calls"],
                                     "ont": ont["dp_calls"]}, built)
+    if "extd2_band_i16" in prev:
+        phase_prev_band(prev["extd2_band_i16"][0], card,
+                        {"hifi": lr["dp_calls"], "ont": ont["dp_calls"]})
     src = "gdiet_tpu_torch/csrc/"
     hifi = kb["runs"][0]  # band 500: the HiFi workload's budget
     # the generic step's 512-lane call: on extd2_i16's route (the SE width

@@ -21,7 +21,8 @@ folded) and the long-read buckets' (banded or full width).
 
 For CUDA tensors each launches its hand-written kernel (built with ``nvcc``
 for ``sm_90a`` at first use and bound with ctypes); for CPU tensors it runs
-the plain torch version. There is no fallback from one to the other: a CUDA
+the plain torch version. The int16 window runs each candidate on a
+thread-block cluster of the size ``band_cluster_size`` picks in code. There is no fallback from one to the other: a CUDA
 call either launches or raises. ``launches``, ``fold_launches``,
 ``band_launches``, their int16 counterparts ``i16_launches``,
 ``fold_i16_launches``, ``band_i16_launches``, and ``backtrack_launches``
@@ -121,6 +122,10 @@ _DP_ARGS = {"extd2": [_P] * 7 + [_I64] * 5 + [_I] * 8 + [_P],
 ENTRIES = {
     **{name: {f"gdiet_{name}": args} for name, args in _DP_ARGS.items()},
     **{f"{name}_i16": {f"gdiet_{name}_i16": args} for name, args in _DP_ARGS.items()},
+    # the int16 window takes the cluster size after the scoring, and says
+    # how many clusters of that size are resident at once
+    "extd2_band_i16": {"gdiet_extd2_band_i16": [_P] * 7 + [_I64] * 6 + [_I] * 11 + [_P],
+                       "gdiet_extd2_band_i16_max_clusters": [_I64, _I64, _I, _P]},
     "backtrack_band": {"gdiet_backtrack_band": [_P] * 7 + [_I64] * 8 + [_I] * 2 + [_P]},
     "vote_scan": {"gdiet_vote_scan": _HALVES + [_P] * 14 + [_I64] * 2 + [_I] + [_P]},
     "vote_lr": {"gdiet_vote_lr": _HALVES + [_P] * 10 + [_I64] * 2 + [_I] + [_P],
@@ -199,6 +204,72 @@ def route_state_dtype(params, Lmax: int, Lt: int | None = None, fold: bool = Fal
     return "int16" if (dp.round16(Lmax), dp.round16(Lt)) in I16_FULL_WIDTH_SHAPES else "int32"
 
 
+# the cluster sizes of csrc/extd2_band_i16.cu, and the fewest lane pairs a
+# block of a cluster holds (a window shift moves the state by 64 pairs)
+CLUSTER_SIZES = (1, 2, 4, 8)
+MIN_CLUSTER_PAIRS = 64
+
+
+def band_cluster_sizes(WB: int) -> list:
+    """The cluster sizes ``csrc/extd2_band_i16.cu`` takes at window width
+    WB: those of ``CLUSTER_SIZES`` that split the window's WB / 2 lane
+    pairs into blocks of at least ``MIN_CLUSTER_PAIRS`` pairs (C > 1) and
+    whole warps of one pair a thread."""
+    return [C for C in CLUSTER_SIZES
+            if C == 1 or (WB // 2 % (32 * C) == 0 and WB // 2 // C >= MIN_CLUSTER_PAIRS)]
+
+
+def band_cluster_size(N: int, WB: int, n_sms: int, resident) -> int:
+    """The cluster size C the int16 window kernel (``csrc/extd2_band_i16.cu``)
+    runs N candidates of window width WB at: the largest C the kernel takes
+    there (``band_cluster_sizes``) with all N clusters resident at once,
+    one block an SM: N * C <= ``n_sms`` and N <= ``resident(C)``, the
+    clusters of C blocks the card holds at once
+    (``cudaOccupancyMaxActiveClusters``). A candidate's wavefronts are a
+    serial chain, so C blocks a candidate spread one wavefront over C SMs;
+    beyond the SMs that are free, clusters would share them. N counts every
+    row, live or not (a count of live rows would need a device sync)."""
+    best = 1
+    for C in band_cluster_sizes(WB)[1:]:
+        if N * C <= n_sms and N <= resident(C):
+            best = C
+    return best
+
+
+_resident_cache: dict = {}
+
+
+def _resident(dev, Lmax: int, WB: int, C: int) -> int:
+    """cudaOccupancyMaxActiveClusters of the int16 window kernel's launch
+    at (Lmax, WB) on clusters of C blocks, on ``dev``; raises on a CUDA
+    error."""
+    key = (str(dev), Lmax, WB, C)
+    if key not in _resident_cache:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = _library("extd2_band_i16").gdiet_extd2_band_i16_max_clusters(
+                Lmax, WB, C, ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError(f"extd2_band_i16: cudaOccupancyMaxActiveClusters at "
+                               f"C = {C} failed: CUDA error {rc}")
+        _resident_cache[key] = out.value
+    return _resident_cache[key]
+
+
+def band_i16_plan(N: int, Lmax: int, WB: int, dev) -> dict:
+    """How ``extd2_batch`` launches the int16 window on ``dev`` (a CUDA
+    device) for N candidates: the cluster size ``band_cluster_size`` picks,
+    the resident clusters of that size, the SMs, the lane pairs and warps a
+    block (the compute warps, the filler and the walker)."""
+    dev = torch.device(dev)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    C = band_cluster_size(N, WB, n_sms, lambda c: _resident(dev, Lmax, WB, c))
+    P = WB // 2 // C
+    ppt = 1 if P <= 960 else 2 if P <= 1920 else 4  # the kernel's pairs a thread
+    return {"cluster": C, "max_active_clusters": _resident(dev, Lmax, WB, C), "sms": n_sms,
+            "pairs_per_block": P, "warps_per_block": P // ppt // 32 + 2}
+
+
 def _launch(state_dtype: str, layout: str, dev, *args) -> None:
     """Launch the DP kernel of ``layout`` ("extd2", "extd2_fold" or
     "extd2_band") for the lane-state type on ``dev``'s current stream;
@@ -258,16 +329,9 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
             tlens.data_ptr() if tlens is not None else None, band.data_ptr())
     scoring = dp.derive_scoring(params)
     if windowed:
-        tl = tlens if tlens is not None else lens
-        T, R, WB = dp_band.band_shape(Lmax, Lt, band_budget, unroll)
-        score = torch.empty((N,), dtype=torch.int32, device=dev)
-        dirs = torch.empty((N, R, WB), dtype=torch.uint8, device=dev)
-        if N:
-            _launch(state_dtype, "extd2_band", dev, *ptrs[:3], tl.data_ptr(), ptrs[4],
-                    score.data_ptr(), dirs.data_ptr(), N, Lmax, Lt, T, R, WB,
-                    band_budget, unroll, *scoring)
-        offs, off_ends = dp.band_geometry(lens, tl, band, R, T)
-        return score, dirs, offs, off_ends
+        return _extd2_band_cuda(query, target, lens, band, params, Lmax,
+                                tlens if tlens is not None else lens, Lt, band_budget,
+                                unroll, state_dtype)
     if fold:
         H, T, Tn = dp_fold.fold_geometry(Lmax, Lt)
         _, Nrows, C = dp_fold.fold_split(N, T, state_dtype)
@@ -284,6 +348,28 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
     if N:
         _launch(state_dtype, "extd2", dev, *ptrs, score.data_ptr(), dirs.data_ptr(),
                 N, Lmax, Lt, T, R, *scoring)
+    offs, off_ends = dp.band_geometry(lens, tlens, band, R, T)
+    return score, dirs, offs, off_ends
+
+
+def _extd2_band_cuda(query, target, lens, band, params, Lmax: int, tlens, Lt: int,
+                     band_budget: int, unroll: int, state_dtype: str, cluster: int | None = None):
+    """The windowed branch of ``extd2_batch`` on checked CUDA tensors (tlens
+    given). The int16 kernel runs on clusters of ``cluster`` blocks, by
+    default the size ``band_i16_plan`` picks; a launch the card refuses at
+    that size raises, as any failed launch does."""
+    N = query.shape[0]
+    dev = query.device
+    T, R, WB = dp_band.band_shape(Lmax, Lt, band_budget, unroll)
+    score = torch.empty((N,), dtype=torch.int32, device=dev)
+    dirs = torch.empty((N, R, WB), dtype=torch.uint8, device=dev)
+    if N:
+        args = (query.data_ptr(), target.data_ptr(), lens.data_ptr(), tlens.data_ptr(),
+                band.data_ptr(), score.data_ptr(), dirs.data_ptr(), N, Lmax, Lt, T, R, WB,
+                band_budget, unroll, *dp.derive_scoring(params))
+        if state_dtype == "int16":
+            args += (cluster or band_i16_plan(N, Lmax, WB, dev)["cluster"],)
+        _launch(state_dtype, "extd2_band", dev, *args)
     offs, off_ends = dp.band_geometry(lens, tlens, band, R, T)
     return score, dirs, offs, off_ends
 

@@ -51,6 +51,9 @@ CASES = {
     "full_ont": ("full", "map-ont", 2, 10, 64, 96, None, 4),
     "band_hifi": ("band", "map-hifi", 3, 8, 256, 512, 64, 8),
     "band_ont": ("band", "map-ont", 4, 6, 160, 384, 48, 4),
+    # a 512-lane window (256 lane pairs: csrc/extd2_band_i16.cu's clusters
+    # of 1, 2 and 4 blocks) that shifts as the band moves right
+    "band_shift": ("band", "map-hifi", 10, 4, 512, 1024, 300, 8),
     "fold_sr": ("fold", "sr", 5, 16, 40, None, None, 4),
     "fold_hifi": ("fold", "map-hifi", 6, 12, 24, 48, None, 4),
 }
