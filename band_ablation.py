@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Ablations of csrc/extd2_band_i16.cu on the card, timed in turns.
+"""Ablations of csrc/extd2_band_i16.cu and csrc/extd2_i16.cu on the card,
+timed in turns.
 
-    python3 band_ablation.py [--prev DIR] [--shapes hifi,ont]
+    python3 band_ablation.py [--prev DIR] [--shapes hifi128_2048,se160,...]
 
 Needs one CUDA GPU and nvcc. Builds the checkout's
 ``gdiet_tpu_torch/csrc/extd2_band_i16.cu`` and variants of it made by
@@ -24,6 +25,26 @@ Each is exact against the int32 kernel (``csrc/extd2_band.cu``) where its
 function is the kernel's, and timed in turns (the list up, then down; each
 the median of 5 rounds of launches, CUDA events). Prints one JSON line per
 shape and the card's ``nvidia-smi`` name and power limit.
+
+The full-width shapes (``se160``: the SE step's 6,272 rows of 150 bp at
+160 lanes; ``gen256``: the generic step's 65,536 rows at 256 lanes,
+36,573 of them live; ``gen512``: 8,192 rows at 512 lanes, where zero
+wavefronts are most of the bytes) take ``csrc/extd2_i16.cu`` (``chip_smoke.dp_pairs``
+rows) and its variants, each the kernel alone (the launches of
+``ops/extd2.py::i16_full_plan`` on preallocated outputs,
+``extd2.launch_full_i16``), in turns:
+
+- ``source``: the checkout's kernel (score and dirs exact against int32);
+- ``no_dirs``: no direction byte stored (the compiler then leaves out
+  their computation too; scores exact);
+- ``no_walk``: no H0 taps or walk (dirs exact);
+- ``zero_only``: the zero warps alone, no DP warp (what the zero
+  wavefronts and dead rows cost by themselves);
+- ``tail0``, ``tail16``, ``tail96``: the source with the plan's one-round
+  tail of a chunked launch (``extd2.I16_TAIL_WARPS_PER_SM``) at 0, 16 and
+  96 warps of rows an SM instead of 48 (exact);
+- ``zero1``: the source with one zero warp an SM
+  (``extd2.I16_ZERO_WARPS_PER_SM``) instead of two (exact).
 """
 
 from __future__ import annotations
@@ -45,6 +66,9 @@ SHAPES = {
     "hifi64_4096": (64, 4096, 5120, 500, "hifi", 62),
     "ont32": (32, 32768, 34048, 1300, "ont", 19),
 }
+# the full width: name: (rows, lanes, live rows)
+FULL_SHAPES = {"se160": (6272, 160, None), "gen256": (65536, 256, 36573),
+               "gen512": (8192, 512, None)}
 # the textual edits of each variant: (what is replaced, what replaces it)
 OLD_QUERY = """      {
         const int i0 = r + 1 - lane0, i1 = i0 - 1;
@@ -64,6 +88,21 @@ VARIANTS = {
 }
 
 
+FULL_VARIANTS = {
+    "no_dirs": [("      if (row_live && lane0 < g.T) *reinterpret_cast<uint16_t*>(drow + lane0) = (uint16_t)d;",
+                 "      if (r == 0x7fffffff && row_live && lane0 < g.T)\n"
+                 "        *reinterpret_cast<uint16_t*>(drow + lane0) = (uint16_t)d;")],
+    "no_walk": [("    taps();\n", ""), ("    walk(r - 1);\n", ""),
+                ("  taps();  // the last wavefront\n", ""), ("  walk(r_max - 1);\n", "")],
+    "zero_only": [("  if (c0 >= g.N) return;\n", "  return;\n")],
+}
+# the source under other plans: the one-round tail of a chunked launch at
+# none, 16 and 96 warps of rows an SM against 48; one zero warp an SM
+# against two
+FULL_PLANS = {**{f"tail{n}": {"I16_TAIL_WARPS_PER_SM": n} for n in (0, 16, 96)},
+              "zero1": {"I16_ZERO_WARPS_PER_SM": 1}}
+
+
 def variant_source(src: str, edits) -> str:
     for old, new in edits:
         if src.count(old) != 1:
@@ -81,11 +120,84 @@ def build(name: str, src: pathlib.Path, out_dir: pathlib.Path):
     return name, proc, so
 
 
+def full_ablation(shapes, cs, out_dir) -> None:
+    """The full-width shapes: ``csrc/extd2_i16.cu``, FULL_VARIANTS and
+    FULL_PLANS, each the kernel alone, in turns; exact where the variant
+    keeps the output."""
+    import numpy as np
+    import torch
+
+    from gdiet_tpu_torch.ops import dp, extd2
+
+    source = (extd2.CSRC / "extd2_i16.cu").read_text()
+    procs = []
+    for name, edits in FULL_VARIANTS.items():
+        path = out_dir / f"full_{name}.cu"
+        path.write_text(variant_source(source, edits))
+        procs.append(build(f"full_{name}", path, out_dir))
+    libs = {"source": extd2._library("extd2_i16")}
+    for name, proc, so in procs:
+        log, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed on {name}:\n{log}")
+        libs[name[len("full_"):]] = extd2.bind(so, "extd2_i16")
+    for shape in shapes:
+        N, L, live = FULL_SHAPES[shape]
+        Q, T, lens, band = cs.dp_pairs(N, L, 150)
+        if live is not None:  # dead rows spread over the batch, as the step's are
+            lens[np.random.default_rng(7).choice(N, N - live, replace=False)] = 0
+        q, t, ln, bd = (torch.from_numpy(a).cuda() for a in (Q, T, lens, band))
+        R = 2 * L - 1
+        ref = extd2.extd2_batch(q, t, ln, bd, cs.PARAMS, L)
+        score = torch.empty((N,), dtype=torch.int32, device=q.device)
+        dirs = torch.empty((N, R, L), dtype=torch.uint8, device=q.device)
+
+        def alone(lib, consts=None):
+            def run():
+                saved = {k: getattr(extd2, k) for k in consts or {}}
+                for k, v in (consts or {}).items():
+                    setattr(extd2, k, v)
+                try:
+                    extd2.launch_full_i16(lib, q.device, q.data_ptr(), t.data_ptr(),
+                                          ln.data_ptr(), None, bd.data_ptr(), score.data_ptr(),
+                                          dirs.data_ptr(), N, L, L, L, R,
+                                          *dp.derive_scoring(cs.PARAMS))
+                finally:
+                    for k, v in saved.items():
+                        setattr(extd2, k, v)
+            return run
+
+        fns = {name: alone(lib) for name, lib in libs.items()}
+        fns.update({name: alone(libs["source"], consts) for name, consts in FULL_PLANS.items()})
+        exact = {}
+        for name, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            exact[name] = {"score": bool(torch.equal(score, ref[0])),
+                           "dirs": bool(torch.equal(dirs, ref[1]))}
+        want = {"source": ("score", "dirs"), "no_dirs": ("score",), "no_walk": ("dirs",),
+                "zero_only": (), "zero1": ("score", "dirs"),
+                **{f"tail{n}": ("score", "dirs") for n in (0, 16, 96)}}
+        for name, keys in want.items():
+            if not all(exact[name][k] for k in keys):
+                raise SystemExit(f"band_ablation: {name} differs from the int32 kernel on {shape}")
+        names = list(fns)
+        turns = {name: [] for name in names}
+        for name in names + names[::-1]:
+            turns[name].append(cs.rounds_ms(fns[name]))
+        print(json.dumps({"shape": shape, "rows": N, "live_rows": int((lens > 0).sum()),
+                          "lanes": L, "kernel": "extd2_i16",
+                          "ms": {k: float(np.mean(v)) for k, v in turns.items()},
+                          "turns_ms": turns, "exact": exact}), flush=True)
+        del ref, score, dirs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--prev", type=pathlib.Path, default=None,
                     help="a directory with an earlier extd2_band_i16.cu (no cluster size)")
-    ap.add_argument("--shapes", default=",".join(SHAPES), help="which of " + ", ".join(SHAPES))
+    ap.add_argument("--shapes", default=",".join([*SHAPES, *FULL_SHAPES]),
+                    help="which of " + ", ".join([*SHAPES, *FULL_SHAPES]))
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -100,6 +212,14 @@ def main(argv=None) -> int:
     print(cs.card_line(), flush=True)
     out_dir = extd2.BUILD_DIR / "ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
+    shapes = args.shapes.split(",")
+    full = [x for x in shapes if x in FULL_SHAPES]
+    shapes = [x for x in shapes if x not in FULL_SHAPES]
+    if full:
+        (out_dir / "dp_pair.cuh").write_text((extd2.CSRC / "dp_pair.cuh").read_text())
+        full_ablation(full, cs, out_dir)
+    if not shapes:
+        return 0
     source = (extd2.CSRC / "extd2_band_i16.cu").read_text()
     procs = []
     for name, edits in VARIANTS.items():
@@ -123,7 +243,7 @@ def main(argv=None) -> int:
         libs[name] = lib
 
     U = dp_band.LR_UNROLL
-    for shape in args.shapes.split(","):
+    for shape in shapes:
         N, L, Lt, bb, preset, live = SHAPES[shape]
         params = cs.LR_PARAMS if preset == "hifi" else ONT_PARAMS
         Q, T, lens, tlens = cs.band_windows(N, L, Lt)

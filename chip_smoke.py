@@ -12,15 +12,16 @@ JAX. Phases, each printing one line:
    ``nvcc`` per source started together (seconds and ``ptxas -v`` output
    per kernel). The DP's lane state on each route: int16 on the LR
    windowed buckets and at the full-width shapes where the int16 kernel
-   measured faster (128, 192, 256 and 512 lanes, the LR (512, 1024)
-   bucket), else int32 (the SE width, the fold, unmeasured shapes;
-   ``extd2.route_state_dtype``, ``sr_dp_kernel``); the phases below check
-   the kernels of each route.
+   measured faster (112, 128, 160, 192, 256 and 512 lanes: the SE width
+   too since extd2_i16.cu's two rows a warp; the LR (512, 1024) bucket),
+   else int32 (the fold, unmeasured shapes; ``extd2.route_state_dtype``,
+   ``sr_dp_kernel``); the phases below check the kernels of each route.
 2. kernel: the CUDA ``extd2`` DP kernel (one warp per row) against its
    plain torch version on the card at the short-read main-path shape (6,272
    rows, Lmax = Lt = 160, qlen 150, bands 150-200; seeded pairs with
-   substitutions, indels, N bases and empty rows): scores, dirs, offs and
-   off_ends bit-equal (tolerance: exact). Then the backtrack kernel on its
+   substitutions, indels, N bases and empty rows): scores and dirs
+   bit-equal (tolerance: exact; on the card the DP leaves offs and off_ends
+   to ``dp.band_geometry``). Then the backtrack kernel on its
    dirs against the plain walk, exact. Prints the times (a kernel's as the
    median of 5 rounds of 10 launches, a plain version's as the better of 2
    runs), the bounds, us per wavefront step, the share of the bound, the
@@ -29,15 +30,16 @@ JAX. Phases, each printing one line:
 3. kernel_fold: the folded ``extd2_fold`` kernel (four warps per kernel
    row) against its plain version on the same rows (576 kernel rows, 11
    passes + drain), then again on the rows the PE phase gives it per batch
-   (5,120 rows of 4,096 pairs: 384 kernel rows, 14 passes): scores, every
-   byte of the raw folded dirs, offs and off_ends bit-equal; the backtrack
+   (5,120 rows of 4,096 pairs: 384 kernel rows, 14 passes): scores and
+   every byte of the raw folded dirs bit-equal; the backtrack
    kernel on the folded dirs equal to the plain folded walk, and both to
    the plain walk of the unfolded kernel's dirs. Times, bounds and build
    facts as in phase 2.
    With ``--prev DIR`` (earlier sources of ``extd2.cu`` and
    ``extd2_fold.cu``): both kernels timed in turns against the earlier
    sources on the same inputs, outputs equal (phase ``prev``; an earlier
-   ``extd2_band_i16.cu`` in DIR: phase 21).
+   ``extd2_band_i16.cu`` in DIR: phase 21; an earlier ``extd2_i16.cu``:
+   phase 22).
 4. kernel_vote: the vote kernel ``vote_scan`` (one thread per read, the
    strand halves read in place in column tiles staged through shared
    memory, the K slots in shared memory) against the plain loop on the
@@ -109,8 +111,8 @@ JAX. Phases, each printing one line:
 11. kernel_band: the int32 banded lane window kernel ``extd2_band`` against its
    plain version at the (2048, 3072) long-read bucket, 64 seeded windows
    (equal, mutated, indels, N codes, dead rows), at band 500 (WB 768) and
-   1300 (WB 1,536), two lanes per thread: scores, every dirs byte, offs and
-   off_ends exact, and ``backtrack_band`` on those dirs equal to the plain
+   1300 (WB 1,536), two lanes per thread: scores and every dirs byte
+   exact, and ``backtrack_band`` on those dirs equal to the plain
    backtrack. The unwindowed (512, 1024) bucket of band 1000 through
    ``extd2`` (1,024 threads) and the backtrack kernel's full-width mode,
    exact. Then both kernels alone at (4096, 5120). Times as in phase 2, the
@@ -185,8 +187,9 @@ JAX. Phases, each printing one line:
    (``extd2_i16``, ``extd2_band_i16``, ``extd2_fold_i16``: two lanes a
    32-bit register, 16x2 DPX) on the DP calls the paths made (the SE, PE
    and generic (256 and 512 lanes) steps' calls, each call of one HiFi
-   batch, the ONT batch's (32768, 34048) chunk) and on seeded rows at 128
-   and 192 lanes: exact against the int32 kernel of its layout and, on the
+   batch, the ONT batch's (32768, 34048) chunk) and on seeded rows at 112
+   (100 bp reads), 128 and 192 lanes: exact against the int32 kernel of
+   its layout and, on the
    SE, PE and generic 512-lane calls and once per HiFi and ONT bucket
    shape (the ONT chunk included, ~2.5 min), against its plain int16
    version; times in turns
@@ -194,6 +197,12 @@ JAX. Phases, each printing one line:
    counts as two lane operations), shares, ptxas registers and spills, and
    the 16x2 DPX instructions of each SASS (> 0). Where a route takes int16
    the int16 kernel must not be slower there than int32 (1%). Each
+   full-width call also reports how ``extd2_i16.cu`` runs it: its plan
+   (``extd2.i16_plan``, i.e. ``extd2.i16_full_plan``: per launch the
+   layout of G threads a row and NS slots of 2G lanes, rows a DP warp,
+   zero warps) with each layout's
+   resident blocks an SM, registers and local bytes, live rows, us per
+   live wavefront (the longest row's) and ns per row wavefront. Each
    windowed call also reports how ``extd2_band_i16.cu`` (one candidate over
    a thread-block cluster) runs it: the cluster size
    ``extd2.band_cluster_size`` picks, the resident clusters of that size
@@ -207,6 +216,14 @@ JAX. Phases, each printing one line:
    windowed int16 call of the HiFi batch and on the ONT chunk, score and
    dirs exact, timed in turns (earlier, current, current, earlier); the
    checkout's not slower beyond 1%.
+22. prev_full (``--prev DIR`` with an earlier ``extd2_i16.cu``, one C entry
+   point ``gdiet_extd2_i16`` for every width): the earlier source and the
+   checkout's on the SE step's call (160 lanes), the generic step's at 256
+   and 512 lanes, the seeded rows at 112, 128 and 192 lanes and the LR
+   (512, 1024) bucket's seeded windows (the block route), each on
+   preallocated outputs (the checkout's: ``extd2.launch_full_i16``, its
+   plan's launches): score and dirs exact, timed in turns (earlier,
+   current, current, earlier); the checkout's not slower beyond 1%.
 
 Then a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before the last line is printed. Without a
@@ -404,11 +421,18 @@ def bound(n_bytes: float, n_ops: float) -> dict:
             "bytes": n_bytes, "int_ops": n_ops}
 
 
-def dp_bound(inputs, out) -> dict:
-    """Bound of one DP call: its inputs read and its score and dirs
-    written once; the operations of the lanes its band updates (the live
-    16-aligned [offs, off_ends] span of every wavefront)."""
-    offs, off_ends = out[2], out[3]
+def dp_bound(inputs, out, L: int, Lt: int | None = None) -> dict:
+    """Bound of one DP call of Lmax L and target budget Lt: its inputs (q,
+    t, lens, band[, tlens]) read and its score and dirs written once; the
+    operations of the lanes its band updates (the live 16-aligned [offs,
+    off_ends] span of every wavefront, ``dp.band_geometry``: the same in
+    every layout)."""
+    from gdiet_tpu_torch.ops import dp
+
+    Lt = Lt or L
+    ln, bd = inputs[2], inputs[3]
+    tl = inputs[4] if len(inputs) > 4 else None
+    offs, off_ends = dp.band_geometry(ln, tl, bd, L + Lt - 1, dp.round16(Lt))
     live = off_ends >= 0
     cells = float(((off_ends - offs + 1) * live).sum())
     n_bytes = sum(a.numel() * a.element_size() for a in inputs if a is not None)
@@ -509,7 +533,7 @@ def phase_kernel(device, N: int, L: int, qlen: int, card: str, built=None) -> di
     res = {"rows": N, "Lmax": L, "qlen": qlen, **times,
            "kernel_mcups": cells / (times["kernel_ms"] * 1e3),
            "plain_mcups": cells / (times["plain_ms"] * 1e3),
-           "max_abs_err": err, **dp_bound((q, t, ln, bd), kern_out),
+           "max_abs_err": err, **dp_bound((q, t, ln, bd), kern_out, L),
            "longest_live_steps": steps,
            "us_per_wavefront_step": times["kernel_ms"] * 1e3 / max(steps, 1),
            "backtrack": bt, "card": card}
@@ -520,17 +544,19 @@ def phase_kernel(device, N: int, L: int, qlen: int, card: str, built=None) -> di
     return res
 
 
-DP_OUTPUTS = ("scores", "dirs", "offs", "off_ends")
+# the DP's outputs held against each other (on the card offs and off_ends
+# are None: dp.band_geometry gives them)
+DP_OUTPUTS = ("scores", "dirs")
 BT_OUTPUTS = ("ops", "fin_i", "fin_j")
 
 
 def check_equal(got, ref, names, what: str) -> int:
-    """Every output of a kernel bit-equal to its plain version's. Returns
-    the largest difference (0)."""
+    """The outputs of a kernel that ``names`` names (its first ones)
+    bit-equal to its plain version's. Returns the largest difference (0)."""
     import torch
 
     errs = [(0 if torch.equal(a, b) else _max_err(a, b)) if a.shape == b.shape else -1
-            for a, b in zip(got, ref)]
+            for _, a, b in zip(names, got, ref)]
     for name, a, b, err in zip(names, got, ref, errs):
         check(a.shape == b.shape and torch.equal(a, b), f"{what}: {name} differ (max {err})")
     return max(errs)
@@ -576,7 +602,7 @@ def phase_kernel_fold(device, N: int, L: int, qlen: int, card: str,
            "kernel_mcups": cells / (times["kernel_ms"] * 1e3),
            "plain_mcups": cells / (times["plain_ms"] * 1e3),
            "max_abs_err": err, "backtrack_equal_to_unfolded": True,
-           **dp_bound((q, t, ln, bd), kern_out),
+           **dp_bound((q, t, ln, bd), kern_out, L),
            "serial_wavefronts": (C + 1) * H,
            "us_per_wavefront_step": times["kernel_ms"] * 1e3 / ((C + 1) * H),
            "backtrack": bt, "card": card}
@@ -844,11 +870,12 @@ def phase_kernel_vote(device, card: str, n_main: int = BENCH_B,
 def build_prev(prev: pathlib.Path) -> dict:
     """``--prev DIR``: the earlier sources in DIR among extd2.cu,
     extd2_fold.cu (same C entry points as the checkout's), vote_scan.cu
-    (the earlier entry point, the concatenated stream) and
+    (the earlier entry point, the concatenated stream),
     extd2_band_i16.cu (the earlier entry point, one block a candidate: the
-    checkout's arguments without the cluster size), each built by its own
-    nvcc, all started together, beside the checkout's. Returns {name:
-    (library, ptxas log, path)}."""
+    checkout's arguments without the cluster size) and extd2_i16.cu (its
+    one entry point for every width, the int32 layout's arguments), each built
+    by its own nvcc, all started together, beside the checkout's. Returns
+    {name: (library, ptxas log, path)}."""
     import ctypes
     import hashlib
 
@@ -858,7 +885,7 @@ def build_prev(prev: pathlib.Path) -> dict:
                                .hexdigest()[:12])
     build.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("extd2", "extd2_fold", "vote_scan", "extd2_band_i16"):
+    for name in ("extd2", "extd2_fold", "vote_scan", "extd2_band_i16", "extd2_i16"):
         if not (prev / f"{name}.cu").exists():
             continue
         so = build / f"{name}.so"
@@ -875,10 +902,11 @@ def build_prev(prev: pathlib.Path) -> dict:
             lib = ctypes.CDLL(str(so))
             lib.gdiet_vote_scan.restype = ctypes.c_int
             lib.gdiet_vote_scan.argtypes = [P] * 18 + [I64] * 2 + [I] + [P]
-        elif name == "extd2_band_i16":  # the int32 window's arguments
+        elif name in ("extd2_band_i16", "extd2_i16"):  # the int32 layout's arguments
             lib = ctypes.CDLL(str(so))
-            lib.gdiet_extd2_band_i16.restype = ctypes.c_int
-            lib.gdiet_extd2_band_i16.argtypes = extd2._DP_ARGS["extd2_band"]
+            fn = getattr(lib, f"gdiet_{name}")
+            fn.restype = ctypes.c_int
+            fn.argtypes = extd2._DP_ARGS[name[:-4]]
         else:
             lib = extd2.bind(so, name)
         out[name] = (lib, log, so)
@@ -926,7 +954,8 @@ def phase_prev(libs: dict, card: str, source: str) -> dict:
         out[tag] = {"rows": N, "earlier_ms": old_ms, "current_ms": new_ms,
                     "speedup": old_ms / new_ms, "turns_ms": times, "max_abs_err": err}
     dp_libs = [n for n in ("extd2", "extd2_fold") if n in libs]
-    out["earlier_ptxas"] = {n: ptxas_info(libs[n][1]) for n in libs if n != "extd2_band_i16"}
+    out["earlier_ptxas"] = {n: ptxas_info(libs[n][1]) for n in libs if n in ("extd2", "extd2_fold",
+                                                                              "vote_scan")}
     out["earlier_sass"] = {n: sass_vi_ops(libs[n][2]) for n in dp_libs}
     say("prev", **out, source=source, card=card)
     return out
@@ -1065,7 +1094,7 @@ def phase_main(device, B: int, n_timed: int, genome_len: int, card: str) -> dict
     import torch
 
     from gdiet_tpu_torch.index import build_index
-    from gdiet_tpu_torch.ops import dp, extd2
+    from gdiet_tpu_torch.ops import dp
     from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
 
     cuda = torch.device(device).type == "cuda"
@@ -1093,11 +1122,12 @@ def phase_main(device, B: int, n_timed: int, genome_len: int, card: str) -> dict
         sam += bytes(blob).decode().splitlines()
     sync()
     wall = time.perf_counter() - t0
-    launches, plain_calls = extd2.launches.n, dp.calls.n
-    counts = sr_counts("the main path", cuda, sr_dp_kernel(MAIN_BUDGETS["max_read_len"], False))
+    dp_kernel = sr_dp_kernel(MAIN_BUDGETS["max_read_len"], False)
+    counts = sr_counts("the main path", cuda, dp_kernel)
+    launches, plain_calls = counts[f"{dp_kernel}_launches"], dp.calls.n
     stats = mapper.stats
     if cuda:
-        check(launches > 0, "the main path launched no extd2 kernel")
+        check(launches > 0, f"the main path launched no {dp_kernel} kernel")
         check(plain_calls == 0, f"the main path called the plain DP {plain_calls} times")
 
     # ---- correctness: origins and the scalar oracle. The reference places
@@ -1154,7 +1184,7 @@ def phase_main(device, B: int, n_timed: int, genome_len: int, card: str) -> dict
            "index_build_s": index_s,
            "fallback_reads": warm["fallback_reads"] + stats["fallback_reads"],
            "retried_reads": warm.get("retried_reads", 0) + stats.get("retried_reads", 0),
-           "extd2_launches": launches, **counts, **step,
+           "dp_kernel": dp_kernel, **counts, **step,
            "mapped_reads": len(mapped), "mapped_at_origin": near / len(mapped),
            "unmapped_reads": len(unmapped),
            "unmapped_checked_by_oracle": min(len(unmapped), N_UNMAPPED_ORACLE),
@@ -1232,7 +1262,7 @@ def dp_at_size(mapper, codes, lens, cuda: bool, n_plain: int = 1024) -> tuple:
                          bt_plain, BT_OUTPUTS, f"backtrack_band at Lmax {L}")
     res = {"Lmax": L, "lanes": dp.round16(L), "rows": int(q.shape[0]), "state_dtype": sd,
            "live_rows": int((ln > 0).sum()), "kernel_ms": times["kernel_ms"],
-           "kernel_ms_rounds": times["kernel_ms_rounds"], **dp_bound((q, t, ln, bd), out),
+           "kernel_ms_rounds": times["kernel_ms_rounds"], **dp_bound((q, t, ln, bd), out, L),
            "plain_rows": n, "plain_ms_on_plain_rows": plain_ms, "max_abs_err": err,
            "backtrack": {"kernel_ms": bt_times["kernel_ms"], **walk_report(bt, bt_times["kernel_ms"],
                                                                           int(q.shape[0])),
@@ -1713,9 +1743,8 @@ def phase_kernel_band(device, card: str, N: int = 64, Lmax: int = 2048,
                       Lt: int = 3072, big: tuple = (4096, 5120), built=None) -> dict:
     """The banded lane window kernel against its plain version at the
     (2048, 3072) long-read bucket, at band budgets 500 (WB 768) and 1300
-    (WB 1,536), two lanes per thread: scores, every
-    dirs byte, offs and off_ends exact; the backtrack kernel on those dirs
-    equal to the plain backtrack. The unwindowed (512, 1024) bucket of
+    (WB 1,536), two lanes per thread: scores and every dirs byte exact;
+    the backtrack kernel on those dirs equal to the plain backtrack. The unwindowed (512, 1024) bucket of
     map-hifi's default band 1000 through extd2.cu (1,024 threads) and the
     backtrack kernel's full-width mode, exact. Then both kernels alone at
     the HiFi workload's largest bucket, (4096, 5120) with band 500. Per
@@ -1757,7 +1786,7 @@ def phase_kernel_band(device, card: str, N: int = 64, Lmax: int = 2048,
         _, R, WB = dp_band.band_shape(Lmax, Lt, bb, U)
         steps = live_steps(lens, tlens)
         run = {"band_budget": bb, "WB": WB, "R": R, **times, "max_abs_err": err,
-               **dp_bound((q, t, ln, bd, tl), kern_out),
+               **dp_bound((q, t, ln, bd, tl), kern_out, Lmax, Lt),
                "live_rows": int((lens > 0).sum()),
                "reach_corner": int((kern_out[0] > -0x40000000).sum()),
                "longest_live_steps": steps,
@@ -1805,7 +1834,7 @@ def phase_kernel_band(device, card: str, N: int = 64, Lmax: int = 2048,
     out["hifi_largest_bucket"] = {
         "Lmax": Lq4, "Lt": Lt4, "band_budget": bb, "WB": WB, "R": R, "N": N,
         "kernel_ms": big_times["kernel_ms"], "kernel_ms_rounds": big_times["kernel_ms_rounds"],
-        **dp_bound((q, t, ln, bd, tl), big), "longest_live_steps": steps,
+        **dp_bound((q, t, ln, bd, tl), big, Lq4, Lt4), "longest_live_steps": steps,
         "us_per_wavefront_step": big_times["kernel_ms"] * 1e3 / max(steps, 1),
         "backtrack_ms": bt_times["kernel_ms"],
         "backtrack": walk_report(bt, bt_times["kernel_ms"], N)}
@@ -2289,9 +2318,15 @@ def int16_run(call, what: str, plain: bool, reps: int | None = None) -> dict:
     def k16():
         return extd2.extd2_batch(q, t, ln, bd, params, L, **kw, state_dtype="int16")
 
+    T = dp.round16(Lt)
+    want = (len(extd2.i16_full_plan(int(q.shape[0]), T, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)) if layout == "full" and T <= extd2.I16_WARP_LANES
+        else 1)
     n0 = counter.n
     got = k16()
-    check(counter.n == n0 + 1, f"{what}: extd2_batch(state_dtype='int16') launched no {name}")
+    check(counter.n == n0 + want,
+          f"{what}: extd2_batch(state_dtype='int16') made {counter.n - n0} launches of {name}, "
+          f"not {want}")
     ref32 = k32()
     err32 = check_equal(got, ref32, DP_OUTPUTS, f"{name} against the int32 kernel on {what}")
     res = {"kernel": name, "route_state": route, "rows": int(q.shape[0]),
@@ -2314,6 +2349,8 @@ def int16_run(call, what: str, plain: bool, reps: int | None = None) -> dict:
         ref = None
     if layout == "band":
         res["band_i16"] = band_i16_report(call, what, ref32, ref, reps)
+    if layout == "full":
+        res["full_i16"] = full_i16_report(call)
     del ref, ref32
     for _ in range(2):
         k32()
@@ -2325,10 +2362,35 @@ def int16_run(call, what: str, plain: bool, reps: int | None = None) -> dict:
     if layout == "band":
         res["band_i16"]["us_per_live_wavefront"] = (res["int16_ms"] * 1e3
                                                     / max(res["band_i16"]["live_wavefronts"], 1))
-    b = dp_bound((q, t, ln, bd, tl), got)
+    if layout == "full":
+        f = res["full_i16"]
+        f["us_per_live_wavefront"] = res["int16_ms"] * 1e3 / max(f["live_wavefronts"], 1)
+        f["ns_per_row_wavefront"] = res["int16_ms"] * 1e6 / max(f["row_wavefronts"], 1)
+    b = dp_bound((q, t, ln, bd, tl), got, L, Lt)
     res.update(bound(b["bytes"], b["int_ops"] / 2), cells=b["cells"])
     res["share_of_bound"] = res["bound_ms"] / res["int16_ms"]
     return res
+
+
+def full_i16_report(call) -> dict:
+    """How ``extd2_i16.cu`` runs one full-width call: its warp-route plan
+    (``extd2.i16_plan``: per launch the layout, rows a DP warp, zero warps,
+    resident blocks an SM, registers, local bytes; the block route above
+    512 lanes has none), live rows, the longest row's live wavefronts and
+    the wavefronts of all live rows (each row to qlen + tlen - 1)."""
+    from gdiet_tpu_torch.ops import dp, extd2
+
+    (q, t, ln, bd, params, L), kw = call
+    Lt = kw.get("Lt") or L
+    tl = kw.get("tlens")
+    lens = ln.cpu().numpy()
+    tlens = lens if tl is None else tl.cpu().numpy()
+    T = dp.round16(Lt)
+    ends = np.where((lens > 0) & (tlens > 0),
+                    np.minimum(L + Lt - 1, lens.astype(np.int64) + tlens - 1), 0)
+    return {"plan": extd2.i16_plan(int(q.shape[0]), T, L, q.device) if T <= 512 else None,
+            "live_rows": int((ends > 0).sum()), "live_wavefronts": live_steps(lens, tlens),
+            "row_wavefronts": int(ends.sum())}
 
 
 def band_i16_report(call, what: str, ref32, ref, reps: int | None) -> dict:
@@ -2415,7 +2477,7 @@ def phase_prev_band(lib, card: str, calls: dict) -> dict:
                 return extd2.extd2_batch(q, t, ln, bd, params, L, **kw)
 
             a, b = old(), new()
-            err = check_equal(a, b[:2], DP_OUTPUTS[:2],
+            err = check_equal(a, b, DP_OUTPUTS,
                               f"earlier and current extd2_band_i16 on the {path} call {i}")
             del a, b
             reps = 2 if L > 8192 else None
@@ -2443,12 +2505,101 @@ def int16_err(report: dict, kernel: str) -> int:
                for runs in report["runs"].values() for r in runs if r["kernel"] == kernel)
 
 
-def phase_kernel_int16(card: str, calls: dict, built=None) -> dict:
+def seeded_full_calls() -> dict:
+    """The full-width calls the paths' captured calls do not cover, on
+    seeded rows: the route's other short-read widths, 112 (100 bp reads),
+    128 and 192 lanes, at the SE batch's size; and the LR route's
+    full-width bucket (512, 1024) at map-hifi's default band 1000, where
+    the window does not engage (extd2_i16.cu's block route), on seeded
+    windows as phase kernel_band runs it."""
+    import torch
+
+    from gdiet_tpu_torch.ops import dp_band
+    from gdiet_tpu_torch.ops.extd2 import route_state_dtype
+
+    widths = []
+    for L in (112, 128, 192):
+        Q, T, lens, band = dp_pairs(KERNEL_SHAPE["N"], L, L - 10 if L > 112 else 100)
+        widths.append((tuple(torch.from_numpy(a).cuda() for a in (Q, T, lens, band))
+                       + (PARAMS, L), {"fold": False, "state_dtype": route_state_dtype(PARAMS, L)}))
+    Q, T, lens, tlens = band_windows(64, 512, 1024, seed=5)
+    args = tuple(torch.from_numpy(a).cuda() for a in (Q, T, lens, np.full(64, 1000, np.int32)))
+    lr = (args + (LR_PARAMS, 512),
+          {"tlens": torch.from_numpy(tlens).cuda(), "Lt": 1024, "band_budget": 1000,
+           "unroll": dp_band.LR_UNROLL,
+           "state_dtype": route_state_dtype(LR_PARAMS, 512, 1024, band_budget=1000,
+                                            unroll=dp_band.LR_UNROLL)})
+    return {"widths": widths, "lr_full_width": [lr]}
+
+
+def phase_prev_full(lib, card: str, calls: dict) -> dict:
+    """``--prev DIR`` with an earlier ``extd2_i16.cu`` (one C entry point,
+    ``gdiet_extd2_i16``, for every width; ``build_prev``): on each
+    full-width call (``calls``: the SE step's at 160 lanes, the generic
+    step's at 256 and 512 lanes, the seeded rows at 112, 128 and 192 lanes
+    and the LR (512, 1024) bucket's seeded windows, the block route) the
+    earlier source and the checkout's (``extd2.launch_full_i16``: its
+    plan's launches), each on preallocated outputs, give the same score
+    and dirs (exact) and are timed in turns (earlier, current, current,
+    earlier; each the median of KERNEL_ROUNDS rounds). The checkout's must
+    not be slower beyond 1%."""
+    import torch
+
+    from gdiet_tpu_torch.ops import dp, extd2
+
+    cur = extd2._library("extd2_i16")
+    runs = []
+    for path, cs in calls.items():
+        for i, ((q, t, ln, bd, params, L), kw) in enumerate(cs):
+            Lt = kw.get("Lt") or L
+            tl = kw.get("tlens")
+            N, T, R = int(q.shape[0]), dp.round16(Lt), L + Lt - 1
+            outs = [(torch.empty((N,), dtype=torch.int32, device=q.device),
+                     torch.empty((N, R, T), dtype=torch.uint8, device=q.device))
+                    for _ in range(2)]
+
+            def alone(lib_, out):
+                score, dirs = out
+                args = (q.data_ptr(), t.data_ptr(), ln.data_ptr(),
+                        tl.data_ptr() if tl is not None else None, bd.data_ptr(),
+                        score.data_ptr(), dirs.data_ptr(), N, L, Lt, T, R,
+                        *dp.derive_scoring(params))
+
+                def run():
+                    if lib_ is cur:
+                        extd2.launch_full_i16(cur, q.device, *args)
+                        return
+                    rc = lib_.gdiet_extd2_i16(*args, torch.cuda.current_stream().cuda_stream)
+                    check(rc == 0, f"the earlier extd2_i16 failed: CUDA error {rc}")
+                return run
+
+            old, new = alone(lib, outs[0]), alone(cur, outs[1])
+            old()
+            new()
+            err = check_equal(outs[0], outs[1], DP_OUTPUTS,
+                              f"earlier and current extd2_i16 on the {path} call {i}")
+            kt = [rounds_ms(f) for f in (old, new, new, old)]
+            old_ms, new_ms = (kt[0] + kt[3]) / 2, (kt[1] + kt[2]) / 2
+            runs.append({"path": path, "call": i, "rows": N, "live_rows": int((ln > 0).sum()),
+                         "Lmax": L, "Lt": Lt, "earlier_ms": old_ms, "current_ms": new_ms,
+                         "speedup": old_ms / new_ms, "turns_ms": kt, "max_abs_err": err})
+            del outs
+    check(bool(runs), "no full-width call to time against the earlier source")
+    out = {"runs": runs, "card": card}
+    say("prev_full", **out)
+    for r in runs:
+        check(r["current_ms"] <= 1.01 * r["earlier_ms"],
+              f"extd2_i16 slower than the earlier source on the {r['path']} call "
+              f"{r['call']}: {r['current_ms']:.3f} against {r['earlier_ms']:.3f} ms")
+    return out
+
+
+def phase_kernel_int16(card: str, calls: dict, built=None, seeded=None) -> dict:
     """Each int16 kernel against the int32 kernel of its layout and its
     plain int16 version on the DP calls the paths made (``calls``: {path:
     [(args, kwargs), ...]} as the main, generic, pe, lr and ont phases
     captured them): the SE step's full width (160 lanes; extd2_i16.cu's
-    warp route, off the int16 route), the generic step's at 256 and 512
+    two-rows-a-warp layout), the generic step's at 256 and 512
     lanes (the plain version on the 512-lane call, 8,192 rows), the PE
     step's fold (5,120 rows; extd2_fold_i16.cu), each DP call of one HiFi
     batch (extd2_band_i16.cu; the full-width (512, 1024) bucket, where the
@@ -2461,13 +2612,13 @@ def phase_kernel_int16(card: str, calls: dict, built=None) -> dict:
     Where a path's route takes int16 (the lane state of its captured
     call), the int16 kernel must not be slower there than int32 beyond the
     spread of the int32 rounds (1%); the ratio of the int32-routed calls is
-    reported. The route's other short-read widths, 128 and 192 lanes, and
-    the LR route's full-width (512, 1024) bucket are timed on seeded
-    rows."""
-    import torch
-
+    reported. The route's other short-read widths, 112, 128 and 192 lanes,
+    and the LR route's full-width (512, 1024) bucket are timed on seeded
+    rows (``seeded_full_calls``, or ``seeded``). Each full-width call also
+    reports the warp route's plan, registers, local bytes and resident
+    blocks an SM (``full_i16_report``), us per live wavefront (the longest
+    row's) and ns per row wavefront (all live rows')."""
     from gdiet_tpu_torch.ops import dp_band
-    from gdiet_tpu_torch.ops.extd2 import route_state_dtype
 
     t_phase = time.perf_counter()
 
@@ -2495,25 +2646,12 @@ def phase_kernel_int16(card: str, calls: dict, built=None) -> dict:
     runs["ont"] = [int16_run(c, f"the ONT batch's DP call {i}", plain, reps=2)
                    for i, (c, plain) in enumerate(zip(calls["ont"], first_of_shape(calls["ont"])))]
     ont_s = time.perf_counter() - t0
-    # the route's other short-read widths, on seeded rows at the SE
-    # batch's size
-    runs["widths"] = []
-    for L in (128, 192):
-        Q, T, lens, band = dp_pairs(KERNEL_SHAPE["N"], L, L - 10)
-        call = (tuple(torch.from_numpy(a).cuda() for a in (Q, T, lens, band)) + (PARAMS, L),
-                {"fold": False, "state_dtype": route_state_dtype(PARAMS, L)})
-        runs["widths"].append(int16_run(call, f"seeded rows at Lmax {L}", False))
-    # the LR route's full-width bucket (512, 1024) at map-hifi's default
-    # band 1000, where the window does not engage (extd2_i16.cu's block
-    # route), on seeded windows as phase kernel_band runs it
-    Q, T, lens, tlens = band_windows(64, 512, 1024, seed=5)
-    args = tuple(torch.from_numpy(a).cuda() for a in (Q, T, lens, np.full(64, 1000, np.int32)))
-    call = (args + (LR_PARAMS, 512),
-            {"tlens": torch.from_numpy(tlens).cuda(), "Lt": 1024, "band_budget": 1000,
-             "unroll": dp_band.LR_UNROLL,
-             "state_dtype": route_state_dtype(LR_PARAMS, 512, 1024, band_budget=1000,
-                                              unroll=dp_band.LR_UNROLL)})
-    runs["lr_full_width"] = [int16_run(call, "seeded windows at the (512, 1024) bucket", True)]
+    # the route's other widths and the LR full-width bucket, on seeded rows
+    seeded = seeded or seeded_full_calls()
+    runs["widths"] = [int16_run(c, f"seeded rows at Lmax {c[0][5]}", False)
+                      for c in seeded["widths"]]
+    runs["lr_full_width"] = [int16_run(seeded["lr_full_width"][0],
+                                       "seeded windows at the (512, 1024) bucket", True)]
     out = {"runs": runs, "ont_seconds": ont_s, "seconds": time.perf_counter() - t_phase}
     routed = {}
     for path, rs in runs.items():
@@ -2865,8 +3003,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="On-card smoke run of gdiet_tpu_torch.")
     ap.add_argument("--prev", type=pathlib.Path, default=None,
-                    help="a directory with earlier extd2.cu, extd2_fold.cu, vote_scan.cu or "
-                         "extd2_band_i16.cu sources: time them in turns against the checkout's")
+                    help="a directory with earlier extd2.cu, extd2_fold.cu, vote_scan.cu, "
+                         "extd2_band_i16.cu or extd2_i16.cu sources: time them in turns "
+                         "against the checkout's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA device: this smoke run needs a GPU", file=sys.stderr)
@@ -2909,17 +3048,24 @@ def main(argv=None) -> int:
     del lr_votes
     mesh_lr = phase_mesh_lr("cuda", card)
     ont = phase_ont("cuda", ONT_TIMED, GENOME_LEN, card)
+    seeded = seeded_full_calls()
     k16 = phase_kernel_int16(card, {"se": m["dp_calls"], "generic": gen["dp_calls"],
                                     "pe": pe["dp_calls"], "hifi": lr["dp_calls"],
-                                    "ont": ont["dp_calls"]}, built)
+                                    "ont": ont["dp_calls"]}, built, seeded)
     if "extd2_band_i16" in prev:
         phase_prev_band(prev["extd2_band_i16"][0], card,
                         {"hifi": lr["dp_calls"], "ont": ont["dp_calls"]})
+    if "extd2_i16" in prev:
+        phase_prev_full(prev["extd2_i16"][0], card,
+                        {"se": m["dp_calls"], "generic": gen["dp_calls"], **seeded})
+    del seeded
     src = "gdiet_tpu_torch/csrc/"
     hifi = kb["runs"][0]  # band 500: the HiFi workload's budget
-    # the generic step's 512-lane call: on extd2_i16's route (the SE width
-    # is not), held against its plain version
-    k16_full = next(r for r in k16["runs"]["generic"] if "plain_ms" in r)
+    # the SE step's call (160 lanes), held against its plain version; the
+    # step's DP checks (main, mesh) count for the kernel of their route
+    k16_full = k16["runs"]["se"][0]
+    se_kernel = m["dp_kernel"]
+    se_errs = [m["step_dp_max_abs_err"]] + [r["dp_max_abs_err"] for r in mesh["runs"]]
     k16_pe = k16["runs"]["pe"][0]
     k16_band = next(r for r in k16["runs"]["hifi"]
                     if r["kernel"] == "extd2_band_i16" and "plain_ms" in r)
@@ -2929,10 +3075,9 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         {"name": "extd2", "route": "cuda", "source": src + "extd2.cu",
          "replaces": "gdiet_tpu/ops/dp_pallas.py:170",
-         "launches": m["extd2_launches"],
-         "max_abs_err": max([k["max_abs_err"], m["step_dp_max_abs_err"],
-                             kb["full_width_bucket"]["max_abs_err"]]
-                            + [r["dp_max_abs_err"] for r in mesh["runs"]]),
+         "launches": m["extd2_launches"],  # 0 where the SE route takes int16
+         "max_abs_err": max([k["max_abs_err"], kb["full_width_bucket"]["max_abs_err"]]
+                            + (se_errs if se_kernel == "extd2" else [])),
          "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
          **{x: k[x] for x in bound_keys}, "library_ms": None},
         {"name": "extd2_band", "route": "cuda", "source": src + "extd2_band.cu",
@@ -2945,10 +3090,12 @@ def main(argv=None) -> int:
         # captured calls (kernel_int16), launches on the routes that take them
         {"name": "extd2_i16", "route": "cuda", "source": src + "extd2_i16.cu",
          "replaces": "gdiet_tpu/ops/dp_pallas.py:183",
-         "launches": (sum(r["full_width_i16_launches"] for r in (lr, ont, *glr.values()))
+         "launches": (m["extd2_i16_launches"]
+                      + sum(r["full_width_i16_launches"] for r in (lr, ont, *glr.values()))
                       + sum(c["extd2_i16_launches"]
                             for c in gen["launches_and_plain_calls"].values())),
-         "max_abs_err": int16_err(k16, "extd2_i16"),
+         "max_abs_err": max([int16_err(k16, "extd2_i16")]
+                            + (se_errs if se_kernel == "extd2_i16" else [])),
          "ms": k16_full["int16_ms"], "plain_ms": k16_full["plain_ms"],
          **{x: k16_full[x] for x in bound_keys}, "library_ms": None},
         {"name": "extd2_band_i16", "route": "cuda", "source": src + "extd2_band_i16.cu",

@@ -98,10 +98,13 @@ struct PairOut {
 // One step of the recurrence on a pair (the body of csrc/extd2_band.cu's
 // lane loop on both halves): s the substitution scores, xp/vp/x2p the lane
 // t-1 neighbours (old x, v, x2), u/y/y2 the pair's own (edge-adjusted)
-// state. All offset binary.
+// state. All offset binary. floor: a word whose halves are <= 0 as int16
+// (0, or kBias held in a register, which saves the four moves that build a
+// constant 0 for the relu maxima each step).
 __device__ __forceinline__ PairOut pair_step(uint32_t s, uint32_t xp, uint32_t vp,
                                              uint32_t x2p, uint32_t u, uint32_t y,
-                                             uint32_t y2, const PairScoring& ps) {
+                                             uint32_t y2, const PairScoring& ps,
+                                             uint32_t floor = 0u) {
   const uint32_t a_ = xp + vp + kUnbias;  // x + v, both halves
   const uint32_t b_ = y + u + kUnbias;
   const uint32_t a2_ = x2p + vp + kUnbias;
@@ -123,10 +126,10 @@ __device__ __forceinline__ PairOut pair_step(uint32_t s, uint32_t xp, uint32_t v
   const uint32_t mq = ps.mq - z, mq2 = ps.mq2 - z;  // S(q - zv), S(q2 - zv)
   // max(term - (zv - q), 0) as plain int16: positive exactly when the gap
   // extends
-  const uint32_t xr = __viaddmax_s16x2_relu(a_, mq, 0u);
-  const uint32_t yr = __viaddmax_s16x2_relu(b_, mq, 0u);
-  const uint32_t x2r = __viaddmax_s16x2_relu(a2_, mq2, 0u);
-  const uint32_t y2r = __viaddmax_s16x2_relu(b2_, mq2, 0u);
+  const uint32_t xr = __viaddmax_s16x2_relu(a_, mq, floor);
+  const uint32_t yr = __viaddmax_s16x2_relu(b_, mq, floor);
+  const uint32_t x2r = __viaddmax_s16x2_relu(a2_, mq2, floor);
+  const uint32_t y2r = __viaddmax_s16x2_relu(b2_, mq2, floor);
   // bit 15 of each half of relu + 0x7fff is (relu > 0); moved to bits 3-6
   const uint32_t ext = (((xr + 0x7fff7fffu) >> 12) & 0x00080008u) |
                        (((yr + 0x7fff7fffu) >> 11) & 0x00100010u) |

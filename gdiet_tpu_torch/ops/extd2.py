@@ -26,7 +26,9 @@ thread-block cluster of the size ``band_cluster_size`` picks in code. There is n
 call either launches or raises. ``launches``, ``fold_launches``,
 ``band_launches``, their int16 counterparts ``i16_launches``,
 ``fold_i16_launches``, ``band_i16_launches``, and ``backtrack_launches``
-count kernel launches.
+count kernel launches (a full-width int16 call up to 512 lanes is one or
+two: ``i16_full_plan``). On the card the DP returns None for offs and
+off_ends: no path reads them, and ``dp.band_geometry`` gives them.
 """
 
 from __future__ import annotations
@@ -122,6 +124,11 @@ _DP_ARGS = {"extd2": [_P] * 7 + [_I64] * 5 + [_I] * 8 + [_P],
 ENTRIES = {
     **{name: {f"gdiet_{name}": args} for name, args in _DP_ARGS.items()},
     **{f"{name}_i16": {f"gdiet_{name}_i16": args} for name, args in _DP_ARGS.items()},
+    # the full width: the block route; one launch of the warp route (an
+    # entry of i16_full_plan after the scoring); each layout's occupancy
+    "extd2_i16": {"gdiet_extd2_i16": _DP_ARGS["extd2"],
+                  "gdiet_extd2_i16_warp": _DP_ARGS["extd2"][:-1] + [_I] * 9 + [_P],
+                  "gdiet_extd2_i16_resident": [_I64] * 3 + [_P]},
     # the int16 window takes the cluster size after the scoring, and says
     # how many clusters of that size are resident at once
     "extd2_band_i16": {"gdiet_extd2_band_i16": [_P] * 7 + [_I64] * 6 + [_I] * 11 + [_P],
@@ -177,12 +184,12 @@ _DP_ROUTES = {"int32": {"extd2": ("extd2", launches),
 
 # (round16(Lmax), round16(Lt)) of the full-width calls at which the int16
 # kernel measured faster than the int32 one in turns on an H100
-# (chip_smoke.py's kernel_int16, PERF.md §6): the warp route at 128, 192,
-# 256 and 512 lanes (0.81-0.92x), the block route at the LR (512, 1024)
-# bucket (0.83x). At 160 lanes it took 1.03x (the warp route's last 64-lane
-# slot is half empty); every other shape is unmeasured and keeps int32.
-I16_FULL_WIDTH_SHAPES = frozenset({(128, 128), (192, 192), (256, 256), (512, 512),
-                                   (512, 1024)})
+# (chip_smoke.py's kernel_int16, PERF.md §6): the warp route at 112 (100 bp
+# reads), 128, 160 (the SE width, since csrc/extd2_i16.cu's two rows a
+# warp), 192, 256 and 512 lanes, the block route at the LR (512, 1024)
+# bucket. Every other shape is unmeasured and keeps int32.
+I16_FULL_WIDTH_SHAPES = frozenset({(112, 112), (128, 128), (160, 160), (192, 192), (256, 256),
+                                   (512, 512), (512, 1024)})
 
 
 def route_state_dtype(params, Lmax: int, Lt: int | None = None, fold: bool = False,
@@ -202,6 +209,93 @@ def route_state_dtype(params, Lmax: int, Lt: int | None = None, fold: bool = Fal
             band_budget, dp.round_up(Lt, 128), unroll) is not None:
         return "int16"
     return "int16" if (dp.round16(Lmax), dp.round16(Lt)) in I16_FULL_WIDTH_SHAPES else "int32"
+
+
+# csrc/extd2_i16.cu's warp route, up to I16_WARP_LANES lanes: its layouts
+# (lanes W, threads a row G, slots NS of 2G lanes; the kernel's by_layout
+# instances), the narrow layout's lanes, the zero warps an SM (two: one was
+# slower at 512 lanes, where zeros are most of the call, four at both
+# generic widths), the warps of rows an SM past which a DP warp takes more
+# rows than it holds at once, and the warps of rows an SM that a chunked
+# launch's last rows take one round a warp (48: the fastest of 0-96 at the
+# generic call, PERF.md §6). Above I16_WARP_LANES: the block route.
+I16_WARP_LANES = 512
+I16_LAYOUTS = ((64, 8, 4), (128, 16, 4), (160, 16, 5), (192, 16, 6), (256, 32, 4),
+               (512, 32, 8))
+I16_NARROW = 160
+I16_ZERO_WARPS_PER_SM = 2
+I16_CHUNK_WARPS_PER_SM = 32
+I16_TAIL_WARPS_PER_SM = 48
+_INT_MAX = 2 ** 31 - 1
+# the fields of a plan entry that gdiet_extd2_i16_warp takes, in order
+_WARP_ARGS = ("W", "G", "tl_lo", "tl_hi", "chunk", "split", "head_warps", "zero_warps",
+              "dp_warps")
+
+
+def i16_full_plan(N: int, T: int, n_sms: int) -> list:
+    """How ``csrc/extd2_i16.cu`` runs a full-width call of N rows of T <=
+    ``I16_WARP_LANES`` lanes on ``n_sms`` SMs: one launch per entry, each
+    {W, G, NS, tl_lo, tl_hi, chunk, split, head_warps, zero_warps,
+    dp_warps}, passed to the kernel as it is (``gdiet_extd2_i16_warp``). A
+    launch's DP warps align the rows with tl_lo < round16(tlen) <= tl_hi in
+    the narrowest layout of W >= T lanes (G threads a row, thread g's pair
+    k the row's pair k G + g: NS slots of 2G lanes, 32 / G rows a warp);
+    above ``I16_NARROW`` lanes the rows whose target fits it take the
+    narrow layout in a first launch and the others T's own in a second. A
+    DP warp takes ``chunk`` rows (its rows a warp times the rounds that
+    keep ``I16_CHUNK_WARPS_PER_SM`` warps of rows an SM, at most 32 rows;
+    one row where a warp holds one: it pairs no dead row with a live one)
+    and aligns their live ones; where a chunk is more than one round, the
+    last ``I16_TAIL_WARPS_PER_SM`` warps of rows an SM (from row ``split``
+    on, after ``head_warps`` chunks) go one round a warp, so that the
+    launch ends on short work. The first launch's leading ``zero_warps``
+    (``I16_ZERO_WARPS_PER_SM`` an SM) write the zero wavefronts."""
+    if not 0 < T <= I16_WARP_LANES or N <= 0 or n_sms <= 0:
+        raise ValueError(f"i16_full_plan: the warp route takes 0 < T <= {I16_WARP_LANES} "
+                         f"and N > 0, not T = {T}, N = {N}")
+    zero = min(N, I16_ZERO_WARPS_PER_SM * n_sms)
+
+    def launch(T_, lo, hi, z):
+        W, G, NS = next(lay for lay in I16_LAYOUTS if lay[0] >= T_)
+        rpw = 32 // G
+        m = 1 if rpw == 1 else N // (rpw * n_sms * I16_CHUNK_WARPS_PER_SM)
+        chunk = rpw * max(1, min(m, 32 // rpw))
+        tail_rows = rpw * n_sms * I16_TAIL_WARPS_PER_SM
+        split = N - tail_rows if chunk > rpw and N > tail_rows else 0
+        head = -(-split // chunk)
+        return {"W": W, "G": G, "NS": NS, "tl_lo": lo, "tl_hi": hi, "chunk": chunk,
+                "split": split, "head_warps": head, "zero_warps": z,
+                "dp_warps": head + -(-(N - split) // rpw)}
+
+    if T > I16_NARROW:
+        return [launch(I16_NARROW, 0, I16_NARROW, zero), launch(T, I16_NARROW, _INT_MAX, 0)]
+    return [launch(T, 0, _INT_MAX, zero)]
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def i16_plan(N: int, T: int, Lmax: int, dev) -> list:
+    """``i16_full_plan`` on ``dev`` (a CUDA device), each launch with its
+    layout's resident blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
+    local bytes a thread and shared bytes a block at Lmax, as the kernel
+    reports them; raises on a CUDA error."""
+    dev = torch.device(dev)
+    n_sms = _sms(dev)
+    lib = _library("extd2_i16")
+    plan = i16_full_plan(N, T, n_sms)
+    for p in plan:
+        occ = (ctypes.c_int32 * 4)()
+        with torch.cuda.device(dev):
+            rc = lib.gdiet_extd2_i16_resident(p["W"], T, Lmax, occ)
+        if rc != 0:
+            raise RuntimeError(f"extd2_i16: occupancy of the {p['W']}-lane layout failed: "
+                               f"CUDA error {rc}")
+        p.update(blocks_per_sm=occ[0], registers=occ[1], local_bytes=occ[2],
+                 shared_bytes=occ[3], sms=n_sms)
+    return plan
 
 
 # the cluster sizes of csrc/extd2_band_i16.cu, and the fewest lane pairs a
@@ -270,17 +364,41 @@ def band_i16_plan(N: int, Lmax: int, WB: int, dev) -> dict:
             "pairs_per_block": P, "warps_per_block": P // ppt // 32 + 2}
 
 
-def _launch(state_dtype: str, layout: str, dev, *args) -> None:
-    """Launch the DP kernel of ``layout`` ("extd2", "extd2_fold" or
-    "extd2_band") for the lane-state type on ``dev``'s current stream;
-    raise on a failed launch, count a good one."""
-    name, count = _DP_ROUTES[state_dtype][layout]
-    lib = _library(name)
+def _run(name: str, count: LaunchCount, dev, entry, *args) -> None:
+    """One launch through the C entry point ``entry`` on ``dev``'s current
+    stream; raise on a failed launch, count a good one."""
     with torch.cuda.device(dev):
-        rc = getattr(lib, f"gdiet_{name}")(*args, _stream(dev))
+        rc = entry(*args, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     count.n += 1
+
+
+def launch_full_i16(lib, dev, *args) -> None:
+    """``csrc/extd2_i16.cu``, built into ``lib``, on ``dev``'s current
+    stream; ``args`` are ``gdiet_extd2_i16``'s without the stream (N at 7,
+    T at 10). Up to ``I16_WARP_LANES`` lanes the warp route, one launch of
+    ``gdiet_extd2_i16_warp`` per entry of ``i16_full_plan``; above, the
+    block route. Counts each launch in ``i16_launches``."""
+    N, T = args[7], args[10]
+    if T > I16_WARP_LANES:
+        _run("extd2_i16", i16_launches, dev, lib.gdiet_extd2_i16, *args)
+        return
+    for p in i16_full_plan(N, T, _sms(dev)):
+        _run("extd2_i16", i16_launches, dev, lib.gdiet_extd2_i16_warp, *args,
+             *(p[k] for k in _WARP_ARGS))
+
+
+def _launch(state_dtype: str, layout: str, dev, *args) -> None:
+    """Launch the DP kernel of ``layout`` ("extd2", "extd2_fold" or
+    "extd2_band") for the lane-state type on ``dev``'s current stream;
+    raise on a failed launch, count each good one."""
+    name, count = _DP_ROUTES[state_dtype][layout]
+    lib = _library(name)
+    if name == "extd2_i16":
+        launch_full_i16(lib, dev, *args)
+    else:
+        _run(name, count, dev, getattr(lib, f"gdiet_{name}"), *args)
 
 
 def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
@@ -300,7 +418,10 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
     exclude each other, as in extd2_batch_pallas. ``state_dtype`` "int16"
     launches the layout's int16 kernel (CPU tensors: the plain version with
     int16 state); outside ``dp.safe_state_dtype``'s bound it raises
-    ValueError."""
+    ValueError. On the card offs and off_ends are None: the paths never
+    read them, their [N, R] passes would cost as much as a kernel at the
+    short-read shapes (XLA drops the unused outputs of the JAX step), and
+    ``dp.band_geometry`` gives them to a caller that needs them."""
     if Lt is None:
         Lt = Lmax
     dp.state_dtype_of(params, state_dtype)  # raises outside the bound
@@ -339,8 +460,7 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
         dirs = torch.empty(((C + 1) * H, Nrows, T), dtype=torch.uint8, device=dev)
         _launch(state_dtype, "extd2_fold", dev, *ptrs, score.data_ptr(), dirs.data_ptr(),
                 N, Lmax, Lt, T, Tn, H, Nrows, C, *scoring)
-        offs, off_ends = dp.band_geometry(lens, tlens, band, 2 * H, Tn)
-        return score[Nrows:][:N], dirs, offs, off_ends
+        return score[Nrows:][:N], dirs, None, None
     T = dp.round16(Lt)
     R = Lmax + Lt - 1
     score = torch.empty((N,), dtype=torch.int32, device=dev)
@@ -348,8 +468,7 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
     if N:
         _launch(state_dtype, "extd2", dev, *ptrs, score.data_ptr(), dirs.data_ptr(),
                 N, Lmax, Lt, T, R, *scoring)
-    offs, off_ends = dp.band_geometry(lens, tlens, band, R, T)
-    return score, dirs, offs, off_ends
+    return score, dirs, None, None
 
 
 def _extd2_band_cuda(query, target, lens, band, params, Lmax: int, tlens, Lt: int,
@@ -370,8 +489,7 @@ def _extd2_band_cuda(query, target, lens, band, params, Lmax: int, tlens, Lt: in
         if state_dtype == "int16":
             args += (cluster or band_i16_plan(N, Lmax, WB, dev)["cluster"],)
         _launch(state_dtype, "extd2_band", dev, *args)
-    offs, off_ends = dp.band_geometry(lens, tlens, band, R, T)
-    return score, dirs, offs, off_ends
+    return score, dirs, None, None
 
 
 def backtrack_band(dirs, lens, tlens, band, Lmax: int, Lt: int,

@@ -49,6 +49,11 @@ SCORING = {"sr": (2, 8, 12, 2, 24, 1), "map-hifi": (1, 4, 6, 2, 26, 1),
 CASES = {
     "full_sr": ("full", "sr", 1, 12, 48, None, None, 4),
     "full_ont": ("full", "map-ont", 2, 10, 64, 96, None, 4),
+    # csrc/extd2_i16.cu's two-rows-a-warp layout (16 threads x 5 lane
+    # pairs), and 256 lanes with rows on both of its launches: targets that
+    # fit 160 lanes (the narrow layout) and wider ones (32 threads x 4)
+    "full_sr160": ("full", "sr", 11, 8, 160, None, None, 4),
+    "full_256": ("full", "sr", 14, 8, 256, 256, None, 4),
     "band_hifi": ("band", "map-hifi", 3, 8, 256, 512, 64, 8),
     "band_ont": ("band", "map-ont", 4, 6, 160, 384, 48, 4),
     # a 512-lane window (256 lane pairs: csrc/extd2_band_i16.cu's clusters
@@ -258,15 +263,16 @@ def test_int16_outside_the_bound_raises(layout):
 
 def test_short_read_route():
     """The short-read step's DP takes int16 at the full widths where the
-    int16 kernel measured faster (128, 192, 256 and 512 lanes); int32 at
-    160 lanes (slower), at unmeasured widths (112, 1024 lanes), for the
-    fold (no faster) and for any scoring outside the bound."""
+    int16 kernel measured faster (112, 128, 160, 192, 256 and 512 lanes;
+    100 bp reads round to 112); int32 at unmeasured widths (96, 144,
+    1024 lanes), for the fold (no faster) and for any scoring outside the
+    bound."""
     from gdiet_tpu_torch.ops.extd2 import route_state_dtype
 
     sr = SCORING["sr"]
-    assert [route_state_dtype(sr, L) for L in (128, 160, 192, 256, 512)] == [
-        "int16", "int32", "int16", "int16", "int16"]
-    assert {route_state_dtype(sr, L) for L in (100, 112, 1024)} == {"int32"}
+    assert [route_state_dtype(sr, L) for L in (100, 112, 128, 150, 160, 192, 256, 512)] == [
+        "int16"] * 8
+    assert {route_state_dtype(sr, L) for L in (96, 144, 1024)} == {"int32"}
     assert {route_state_dtype(sr, L, fold=True) for L in (160, 256)} == {"int32"}
     unsafe = (2, 8, 12, 2, 8190, 1)
     assert {route_state_dtype(unsafe, L, fold=f) for L in (160, 256)
@@ -308,17 +314,25 @@ def test_fold_split_matches_jax_int16():
 
 
 def _cuda_case(name, kernel_count):
-    """The case on the card through the int16 kernel: exact against the
-    plain int16 version on the card and against the int32 kernel; the
-    int16 kernel launched once."""
+    """The case on the card through the int16 kernel: score and dirs exact
+    against the plain int16 version on the card and against the int32
+    kernel (the card leaves offs and off_ends to dp.band_geometry); the
+    int16 kernel launched once, or once per entry of
+    ``extd2.i16_full_plan`` on the full width's warp route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    layout, preset, _, _, Lmax, Lt, bb, U = CASES[name]
+    Q, T, lens, band, tlens = _inputs(name)
+    T_ = dp.round16(Lt or Lmax)
+    want = 1
+    if layout == "full" and T_ <= extd2.I16_WARP_LANES:
+        n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+        want = len(extd2.i16_full_plan(len(lens), T_, n_sms))
     n0 = kernel_count.n
     got = _port(name, "int16", "cuda")
     torch.cuda.synchronize()
-    assert kernel_count.n == n0 + 1
-    layout, preset, _, _, Lmax, Lt, bb, U = CASES[name]
-    Q, T, lens, band, tlens = _inputs(name)
+    assert kernel_count.n == n0 + want
+    assert got[2] is None and got[3] is None
     q, t, ln, bd = (torch.from_numpy(a).cuda() for a in (Q, T, lens, band))
     tl = None if tlens is None else torch.from_numpy(tlens).cuda()
     prm = SCORING[preset]
@@ -328,14 +342,14 @@ def _cuda_case(name, kernel_count):
         plain = dp_fold.extd2_fold(q, t, ln, bd, prm, Lmax, tl, Lt, "int16")
     else:
         plain = dp.extd2_batch(q, t, ln, bd, prm, Lmax, tl, Lt, "int16")
-    for key, a, b in zip(OUTPUTS, got, plain):
+    for key, a, b in zip(OUTPUTS[:2], got, plain):
         assert torch.equal(a, b), key
-    for key, a, b in zip(OUTPUTS, got, _port(name, "int32", "cuda")):
+    for key, a, b in zip(OUTPUTS[:2], got, _port(name, "int32", "cuda")):
         assert torch.equal(a, b), key
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["full_sr", "full_ont"])
+@pytest.mark.parametrize("name", ["full_sr", "full_ont", "full_sr160", "full_256"])
 def test_cuda_int16_kernel_full_width(name):
     _cuda_case(name, extd2.i16_launches)
 
