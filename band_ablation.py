@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Ablations of csrc/extd2_band_i16.cu and csrc/extd2_i16.cu on the card,
-timed in turns.
+"""Ablations of csrc/extd2_band_i16.cu, csrc/extd2_i16.cu, csrc/vote_lr.cu
+and csrc/extd2_fold_i16.cu on the card, timed in turns.
 
     python3 band_ablation.py [--prev DIR] [--shapes hifi128_2048,se160,...]
 
@@ -45,6 +45,28 @@ rows) and its variants, each the kernel alone (the launches of
   96 warps of rows an SM instead of 48 (exact);
 - ``zero1``: the source with one zero warp an SM
   (``extd2.I16_ZERO_WARPS_PER_SM``) instead of two (exact).
+
+The long-read vote shapes (``vote_hifi``: 256 reads of 512 columns a half,
+20-170 valid, K = 5, vt_distance 650; ``vote_ont``: 16 reads of 4,096, 100-
+600 valid, K = 3, vt_distance 1000; seeded streams whose runs are ~120
+columns long, as the fronts' are, ``vote_streams``) take
+``csrc/vote_lr.cu`` and its variants, both entry points on preallocated
+outputs, exact against the source, timed by device time (torch.profiler)
+in turns:
+
+- ``steps1``, ``steps8``: one and eight steps of 32 columns in flight a
+  warp instead of four;
+- ``one_warp``: round 1 by one warp a read walking both halves in turn
+  (the kernel's route for K > 32) instead of a warp a half.
+
+The fold shapes (``fold_pe``: the PE step's 5,120 rows; ``fold_se``: the SE
+call's 6,272; 160 lanes, ``chip_smoke.dp_pairs`` rows) take
+``csrc/extd2_fold_i16.cu`` and its variants through ``extd2_batch``, in
+turns with ``csrc/extd2_fold.cu`` (int32):
+
+- ``no_walk``: the walker warp walks no H0 (dirs exact);
+- ``no_taps``: no walk and no tap stored by the compute threads (dirs
+  exact).
 """
 
 from __future__ import annotations
@@ -95,6 +117,20 @@ FULL_VARIANTS = {
     "no_walk": [("    taps();\n", ""), ("    walk(r - 1);\n", ""),
                 ("  taps();  // the last wavefront\n", ""), ("  walk(r_max - 1);\n", "")],
     "zero_only": [("  if (c0 >= g.N) return;\n", "  return;\n")],
+}
+VOTE_SHAPES = {"vote_hifi": (256, 512, 20, 170, 5, 650), "vote_ont": (16, 4096, 100, 600, 3, 1000)}
+VOTE_VARIANTS = {
+    "steps1": [("constexpr int kSteps = 4;", "constexpr int kSteps = 1;")],
+    "steps8": [("constexpr int kSteps = 4;", "constexpr int kSteps = 8;")],
+    "one_warp": [("  if (K <= kMaxSmemSlots)\n    vote_lr_kernel",
+                  "  if (false)\n    vote_lr_kernel")],
+}
+FOLD_SHAPES = {"fold_pe": 5120, "fold_se": 6272}
+_NO_WALK = ("    auto walk = [&](int p, int r) {\n",
+            "    auto walk = [&](int p, int r) {\n      if (p >= 0) return;\n")
+FOLD_VARIANTS = {
+    "no_walk": [_NO_WALK],
+    "no_taps": [_NO_WALK, ("      taps[(g & 1) * NP + j] = make_uint2(v, u);", "")],
 }
 # the source under other plans: the one-round tail of a chunked launch at
 # none, 16 and 96 warps of rows an SM against 48; one zero warp an SM
@@ -192,12 +228,183 @@ def full_ablation(shapes, cs, out_dir) -> None:
         del ref, score, dirs
 
 
+def vote_streams(B: int, A: int, nmin: int, nmax: int, dist: int, seed: int = 7) -> dict:
+    """Seeded long-read vote streams laid out as the front lays them out
+    (fwd | barrier | rev | barrier, valid-first halves of nmin-nmax valid
+    columns), in runs of ~120 columns (geometric) whose keys step by 0-5,
+    the runs far apart; query positions over a 30 kb read."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    M = 2 * (A + 1)
+    keys = np.full((B, M), np.uint64(2**64 - 1), np.uint64)
+    qpos = np.zeros((B, M), np.int32)
+    valid = np.zeros((B, M), bool)
+    for b in range(B):
+        for h in range(2):
+            n, off = int(rng.integers(nmin, nmax + 1)), h * (A + 1)
+            pos, c = int(rng.integers(0, 1 << 30)), 0
+            while c < n:
+                L = min(n - c, int(rng.geometric(1 / 120)))
+                keys[b, off + c:off + c + L] = np.uint64(pos) + np.cumsum(
+                    rng.integers(0, 6, L)).astype(np.uint64)
+                q = np.sort(rng.integers(0, 30000, L))
+                qpos[b, off + c:off + c + L] = q if h else q[::-1]
+                valid[b, off + c:off + c + L] = True
+                c += L
+                pos += int(rng.integers(5000, 50000))
+    return {"keys": keys, "qpos": qpos, "valid": valid,
+            "extracted": rng.integers(1000, 30000, B).astype(np.int64),
+            "vt_distance": np.full(B, dist, np.int64), "cov_thr": np.full(B, 20, np.int32),
+            "lo1": np.zeros(B, np.int32), "hi1": rng.integers(0, 3000, B).astype(np.int32),
+            "lo2": rng.integers(20000, 29000, B).astype(np.int32),
+            "hi2": np.full(B, 30000, np.int32)}
+
+
+def vote_ablation(shapes, cs, out_dir) -> None:
+    """The vote shapes: ``csrc/vote_lr.cu`` and VOTE_VARIANTS, both entry
+    points on preallocated outputs, exact against the source (which
+    chip_smoke.py holds against the plain loops), device time in turns."""
+    import numpy as np
+    import torch
+
+    from gdiet_tpu_torch.ops import extd2, vote
+
+    source = (extd2.CSRC / "vote_lr.cu").read_text()
+    procs = []
+    for name, edits in VOTE_VARIANTS.items():
+        path = out_dir / f"vote_{name}.cu"
+        path.write_text(variant_source(source, edits))
+        procs.append(build(f"vote_{name}", path, out_dir))
+    libs = {"source": extd2._library("vote_lr")}
+    for name, proc, so in procs:
+        log, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed on {name}:\n{log}")
+        libs[name[len("vote_"):]] = extd2.bind(so, "vote_lr")
+    for shape in shapes:
+        B, A, nmin, nmax, K, dist = VOTE_SHAPES[shape]
+        s = vote_streams(B, A, nmin, nmax, dist)
+        halves = []
+        for n in ("keys", "qpos", "valid"):
+            for off in (0, A + 1):
+                a = s[n][:, off:off + A]
+                halves.append(torch.from_numpy(np.ascontiguousarray(
+                    a.view(np.int64) if a.dtype == np.uint64 else a)).cuda())
+        fk, rk, fq, rq, fok, rok = halves
+        _, _, ld, ptrs = vote._halves(fk, fq, fok, rk, rq, rok)
+        per = {n: torch.from_numpy(s[n]).cuda() for n in ("extracted", "vt_distance", "cov_thr",
+                                                           "lo1", "hi1", "lo2", "hi2")}
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def entries(lib):
+            o1 = {n: torch.empty((B,) if n == "out_len" else (B, K),
+                                 dtype=torch.int64 if n.endswith("_t") else torch.int32,
+                                 device="cuda") for n in vote.LR_OUTPUTS}
+            o2 = torch.empty((B, 16), dtype=torch.int32, device="cuda")
+
+            def r1():
+                rc = lib.gdiet_vote_lr(*ptrs, ld, per["extracted"].data_ptr(),
+                                       per["vt_distance"].data_ptr(), per["cov_thr"].data_ptr(),
+                                       *(o1[n].data_ptr() for n in vote.LR_OUTPUTS), B, A, K,
+                                       stream)
+                if rc != 0:
+                    raise RuntimeError(f"band_ablation: vote_lr failed, CUDA error {rc}")
+                return [o1[n] for n in vote.LR_OUTPUTS]
+
+            def r2():
+                wins = (per[n].data_ptr() for n in ("lo1", "hi1", "lo2", "hi2"))
+                rc = lib.gdiet_vote2_pair(*ptrs, ld, per["extracted"].data_ptr(),
+                                          per["vt_distance"].data_ptr(), *wins,
+                                          o2.data_ptr(), B, A, stream)
+                if rc != 0:
+                    raise RuntimeError(f"band_ablation: vote2_pair failed, CUDA error {rc}")
+                return [o2]
+            return {"round1": r1, "round2": r2}
+
+        fns = {name: entries(lib) for name, lib in libs.items()}
+        ref = {r: [x.clone() for x in fns["source"][r]()] for r in ("round1", "round2")}
+        for name in fns:
+            for r in ("round1", "round2"):
+                if not all(torch.equal(a, b) for a, b in zip(fns[name][r](), ref[r])):
+                    raise SystemExit(f"band_ablation: {name} differs from the source on {shape}")
+        names = list(fns)
+        out = {}
+        for r, kern in (("round1", "vote_lr"), ("round2", "vote2_pair")):
+            turns = {name: [] for name in names}
+            for name in names + names[::-1]:
+                turns[name].append(cs.device_ms(fns[name][r], kern))
+            out[r] = {"device_ms": {k: float(np.mean(v)) if None not in v else None
+                                    for k, v in turns.items()}, "device_turns_ms": turns}
+        ok = s["valid"]
+        n_valid = np.concatenate([ok[:, :A].sum(1), ok[:, A + 1:2 * A + 1].sum(1)])
+        print(json.dumps({"shape": shape, "B": B, "A": A, "K": K,
+                          "valid_per_half_mean": float(n_valid.mean()),
+                          "valid_per_half_max": int(n_valid.max()), **out}), flush=True)
+
+
+def fold_ablation(shapes, cs, out_dir) -> None:
+    """The fold shapes: ``csrc/extd2_fold_i16.cu`` and FOLD_VARIANTS through
+    ``extd2_batch``, in turns with ``csrc/extd2_fold.cu``; dirs exact
+    against int32 (scores too where the variant walks)."""
+    import numpy as np
+    import torch
+
+    from gdiet_tpu_torch.ops import extd2
+
+    source = (extd2.CSRC / "extd2_fold_i16.cu").read_text()
+    (out_dir / "dp_pair.cuh").write_text((extd2.CSRC / "dp_pair.cuh").read_text())
+    procs = []
+    for name, edits in FOLD_VARIANTS.items():
+        path = out_dir / f"fold_{name}.cu"
+        path.write_text(variant_source(source, edits))
+        procs.append(build(f"fold_{name}", path, out_dir))
+    cur = extd2._library("extd2_fold_i16")
+    libs = {"source": cur}
+    for name, proc, so in procs:
+        log, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed on {name}:\n{log}")
+        libs[name[len("fold_"):]] = extd2.bind(so, "extd2_fold_i16")
+    for shape in shapes:
+        N = FOLD_SHAPES[shape]
+        q, t, ln, bd = (torch.from_numpy(a).cuda() for a in cs.dp_pairs(N, 160, 150))
+
+        def with_lib(lib):
+            def run():
+                extd2._libs["extd2_fold_i16"] = lib
+                try:
+                    return extd2.extd2_batch(q, t, ln, bd, cs.PARAMS, 160, fold=True,
+                                             state_dtype="int16")[:2]
+                finally:
+                    extd2._libs["extd2_fold_i16"] = cur
+            return run
+
+        fns = {name: with_lib(lib) for name, lib in libs.items()}
+        fns["int32"] = lambda: extd2.extd2_batch(q, t, ln, bd, cs.PARAMS, 160, fold=True)[:2]
+        ref = fns["int32"]()
+        exact = {}
+        for name, fn in fns.items():
+            score, dirs = fn()
+            exact[name] = {"score": bool(torch.equal(score, ref[0])),
+                           "dirs": bool(torch.equal(dirs, ref[1]))}
+            if not exact[name]["dirs"] or (name in ("source", "int32") and not exact[name]["score"]):
+                raise SystemExit(f"band_ablation: {name} differs from the int32 kernel on {shape}")
+        names = list(fns)
+        turns = {name: [] for name in names}
+        for name in names + names[::-1]:
+            turns[name].append(cs.rounds_ms(fns[name]))
+        print(json.dumps({"shape": shape, "rows": N, "lanes": 160, "kernel": "extd2_fold_i16",
+                          "ms": {k: float(np.mean(v)) for k, v in turns.items()},
+                          "turns_ms": turns, "exact": exact}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--prev", type=pathlib.Path, default=None,
                     help="a directory with an earlier extd2_band_i16.cu (no cluster size)")
-    ap.add_argument("--shapes", default=",".join([*SHAPES, *FULL_SHAPES]),
-                    help="which of " + ", ".join([*SHAPES, *FULL_SHAPES]))
+    every = [*SHAPES, *FULL_SHAPES, *VOTE_SHAPES, *FOLD_SHAPES]
+    ap.add_argument("--shapes", default=",".join(every), help="which of " + ", ".join(every))
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -214,10 +421,16 @@ def main(argv=None) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     shapes = args.shapes.split(",")
     full = [x for x in shapes if x in FULL_SHAPES]
-    shapes = [x for x in shapes if x not in FULL_SHAPES]
+    votes = [x for x in shapes if x in VOTE_SHAPES]
+    folds = [x for x in shapes if x in FOLD_SHAPES]
+    shapes = [x for x in shapes if x in SHAPES]
     if full:
         (out_dir / "dp_pair.cuh").write_text((extd2.CSRC / "dp_pair.cuh").read_text())
         full_ablation(full, cs, out_dir)
+    if votes:
+        vote_ablation(votes, cs, out_dir)
+    if folds:
+        fold_ablation(folds, cs, out_dir)
     if not shapes:
         return 0
     source = (extd2.CSRC / "extd2_band_i16.cu").read_text()

@@ -13,9 +13,11 @@ JAX. Phases, each printing one line:
    per kernel). The DP's lane state on each route: int16 on the LR
    windowed buckets and at the full-width shapes where the int16 kernel
    measured faster (112, 128, 160, 192, 256 and 512 lanes: the SE width
-   too since extd2_i16.cu's two rows a warp; the LR (512, 1024) bucket),
-   else int32 (the fold, unmeasured shapes; ``extd2.route_state_dtype``,
-   ``sr_dp_kernel``); the phases below check the kernels of each route.
+   too since extd2_i16.cu's two rows a warp; the LR (512, 1024) bucket)
+   and for the fold at 160 lanes (the SE and PE width, since
+   extd2_fold_i16.cu's filler and walker warps), else int32 (unmeasured
+   shapes; ``extd2.route_state_dtype``, ``sr_dp_kernel``); the phases
+   below check the kernels of each route.
 2. kernel: the CUDA ``extd2`` DP kernel (one warp per row) against its
    plain torch version on the card at the short-read main-path shape (6,272
    rows, Lmax = Lt = 160, qlen 150, bands 150-200; seeded pairs with
@@ -39,7 +41,8 @@ JAX. Phases, each printing one line:
    ``extd2_fold.cu``): both kernels timed in turns against the earlier
    sources on the same inputs, outputs equal (phase ``prev``; an earlier
    ``extd2_band_i16.cu`` in DIR: phase 21; an earlier ``extd2_i16.cu``:
-   phase 22).
+   phase 22; an earlier ``vote_lr.cu``: phase 23; an earlier
+   ``extd2_fold_i16.cu``: phase 24).
 4. kernel_vote: the vote kernel ``vote_scan`` (one thread per read, the
    strand halves read in place in column tiles staged through shared
    memory, the K slots in shared memory) against the plain loop on the
@@ -139,18 +142,23 @@ JAX. Phases, each printing one line:
    launched (twice a batch) and neither the plain LR vote loops nor
    ``lr_step._stream_columns`` called.
 14. kernel_vote_lr: ``csrc/vote_lr.cu``'s round 1 (``vote_lr``) and both
-   round-2 windows (``vote2_pair``) against the plain LR loops on the vote
-   calls captured from one HiFi batch (256 reads, M = 1,026, K = 5): every
-   output exact; times, bounds and serial floors as in phase 4; ptxas
-   registers and spills.
+   round-2 windows (``vote2_pair``; one warp per read half, 32 columns a
+   step) against the plain LR loops on the vote calls captured from one
+   HiFi batch (256 reads, M = 1,026, K = 5): every output exact; times and
+   bounds as in phase 4, each entry point's device time, the warps
+   launched, the stream as the warps walk it (valid columns per half, run
+   lengths, scan iterations), the serial floor (the longest half's scan
+   iterations x ~270 cycles), the launch floor (an empty kernel's device
+   time at the same launch shape); ptxas registers and spills.
 15. ont: the ONT path at full size, its first run on the card: bench.py's
    ``gen_ont_reads`` recipe (30 kb reads at 3% substitutions, 1%
    insertions, 1% deletions) and ``ont_stats`` options and budgets, 1
    warm-up + 2 timed batches of 16. Checks: >= 90% of reads mapped; the
    int16 DP, backtrack and vote kernels launched, no int32 DP and no plain
    version called in the timed window; one batch's captured vote stream (M = 8,194) through
-   ``vote_lr.cu`` and the plain loops, exact. Reads/s, fallbacks and host
-   DP segments (``LongReadMapper.stats``), one batch's per-phase times.
+   ``vote_lr.cu`` and the plain loops, exact, reported as in phase 14.
+   Reads/s, fallbacks and host DP segments (``LongReadMapper.stats``), one
+   batch's per-phase times.
 
 16. mesh (after main): the main phase's workload, one batch of 10,016 reads
    at the bench budgets, through ``ShortReadMapper(mesh=...)`` on the
@@ -188,8 +196,8 @@ JAX. Phases, each printing one line:
    32-bit register, 16x2 DPX) on the DP calls the paths made (the SE, PE
    and generic (256 and 512 lanes) steps' calls, each call of one HiFi
    batch, the ONT batch's (32768, 34048) chunk) and on seeded rows at 112
-   (100 bp reads), 128 and 192 lanes: exact against the int32 kernel of
-   its layout and, on the
+   (100 bp reads), 128 and 192 lanes and the SE fold call (phase 3's 6,272
+   seeded rows): exact against the int32 kernel of its layout and, on the
    SE, PE and generic 512-lane calls and once per HiFi and ONT bucket
    shape (the ONT chunk included, ~2.5 min), against its plain int16
    version; times in turns
@@ -211,6 +219,9 @@ JAX. Phases, each printing one line:
    4 and, at the ONT width, 8), exact against the int32 kernel and, where
    the call ran it, the plain int16 version (the ONT chunk's plain run
    once, each C held against its stored result), each C timed in turns.
+   The fold kernel's launch at 160 lanes: threads (T / 2, the filler and
+   the walker warp), shared memory, resident blocks an SM, the helper
+   warps' share of the block's warps.
 21. prev_band (``--prev DIR`` with an earlier ``extd2_band_i16.cu``, one
    block a candidate): the earlier source and the checkout's on each
    windowed int16 call of the HiFi batch and on the ONT chunk, score and
@@ -224,6 +235,17 @@ JAX. Phases, each printing one line:
    preallocated outputs (the checkout's: ``extd2.launch_full_i16``, its
    plan's launches): score and dirs exact, timed in turns (earlier,
    current, current, earlier); the checkout's not slower beyond 1%.
+23. prev_vote_lr (``--prev DIR`` with an earlier ``vote_lr.cu``, same C
+   entry points, ``vote_tile.cuh`` beside it): the earlier source and the
+   checkout's on the HiFi and ONT batches' captured vote calls, both entry
+   points on preallocated outputs, outputs exact, device time (torch.profiler)
+   and CUDA events in turns; the checkout's device time not longer beyond
+   1%.
+24. prev_fold_i16 (``--prev DIR`` with an earlier ``extd2_fold_i16.cu``,
+   ``dp_pair.cuh`` beside it): the earlier source, the checkout's and
+   ``extd2_fold.cu`` on the PE step's captured fold call and the SE fold
+   call, score and dirs exact, in turns (int32, earlier, current, current,
+   earlier, int32); the checkout's not slower than the earlier beyond 1%.
 
 Then a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero before the last line is printed. Without a
@@ -621,7 +643,12 @@ def phase_kernel_fold(device, N: int, L: int, qlen: int, card: str,
 VOTE_OPS_PER_COLUMN = 12
 VOTE_CYCLES_PER_COLUMN = 24
 VOTE_LR_OPS_PER_COLUMN = 20
-VOTE_LR_CYCLES_PER_COLUMN = 36
+# csrc/vote_lr.cu walks a half 32 columns a step, one scan a step plus one a
+# run break; the dependent chain of one scan (counted from the source, not
+# measured): five shuffle levels of (q, lane) at ~27 cycles, the exclusive
+# shift, the key's shuffle, the distance test and ballot, the first break,
+# the carry's two chained shuffles: ~270 cycles
+VOTE_LR_STEP_CYCLES = 270
 
 
 def capture_calls(owner, names, run) -> dict:
@@ -869,7 +896,8 @@ def phase_kernel_vote(device, card: str, n_main: int = BENCH_B,
 
 def build_prev(prev: pathlib.Path) -> dict:
     """``--prev DIR``: the earlier sources in DIR among extd2.cu,
-    extd2_fold.cu (same C entry points as the checkout's), vote_scan.cu
+    extd2_fold.cu, vote_lr.cu, extd2_fold_i16.cu (same C entry points as
+    the checkout's; the headers they include beside them), vote_scan.cu
     (the earlier entry point, the concatenated stream),
     extd2_band_i16.cu (the earlier entry point, one block a candidate: the
     checkout's arguments without the cluster size) and extd2_i16.cu (its
@@ -885,7 +913,8 @@ def build_prev(prev: pathlib.Path) -> dict:
                                .hexdigest()[:12])
     build.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("extd2", "extd2_fold", "vote_scan", "extd2_band_i16", "extd2_i16"):
+    for name in ("extd2", "extd2_fold", "vote_scan", "extd2_band_i16", "extd2_i16", "vote_lr",
+                 "extd2_fold_i16"):
         if not (prev / f"{name}.cu").exists():
             continue
         so = build / f"{name}.so"
@@ -1519,7 +1548,8 @@ def phase_golden_pe(card: str) -> dict:
             if device == "cuda":
                 bt[name] = sr_counts(f"the PE CLI ({name})", True)
             if name == "cuda_fold":
-                check(extd2.fold_launches.n > 0, "the PE CLI launched no fold kernel")
+                check(extd2.fold_launches.n + extd2.fold_i16_launches.n > 0,
+                      "the PE CLI launched no fold kernel")
     os.environ.pop("GDIET_DP_FOLD")
     ref = runs["cuda_fold"]
     for name in ("cpu_fold", "cuda_unfold"):
@@ -1601,7 +1631,8 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
         return [l for b in m.map_stream_sam_pe(iter(bs)) for l in bytes(b).decode().splitlines()]
 
     # ---- the PE path: counts reset just before, read just after ----
-    counts = (extd2.launches, extd2.fold_launches, dp.calls, dp_fold.calls)
+    counts = ((extd2.launches, extd2.i16_launches), (extd2.fold_launches, extd2.fold_i16_launches),
+              (dp.calls,), (dp_fold.calls,))
     sr_counts_reset()
     sam = run(mapper, batches[:1])  # warm-up batch
     first_batch = list(sam)
@@ -1610,10 +1641,11 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
     sam += run(mapper, batches[1:])
     sync()
     wall = time.perf_counter() - t0
-    unfold_launches, fold_launches, plain_calls, plain_fold_calls = (c.n for c in counts)
+    unfold_launches, fold_launches, plain_calls, plain_fold_calls = (sum(c.n for c in cs)
+                                                                     for cs in counts)
     pe_counts = sr_counts("the PE path", cuda, sr_dp_kernel(MAIN_BUDGETS["max_read_len"], True))
     if cuda:
-        check(fold_launches > 0, "the PE path launched no extd2_fold kernel")
+        check(fold_launches > 0, "the PE path launched no fold kernel")
         check(plain_fold_calls == 0 and plain_calls == 0,
               f"the PE path called the plain DP ({plain_calls} unfolded, "
               f"{plain_fold_calls} folded)")
@@ -2036,15 +2068,87 @@ def capture_lr_votes(mapper, reads, n_rows: int = 1) -> dict:
     return seen
 
 
+def lr_vote_walk(halves, dist) -> dict:
+    """The round-1 runs of each half of a captured long-read stream, walked
+    on the host as csrc/vote_lr.cu's warps walk them (valid-first halves):
+    valid columns per half, run lengths, and each warp's scan iterations
+    (one a 32-column step, plus one a run break inside it; the half's first
+    column starts its first run without one)."""
+    import torch
+
+    from gdiet_tpu_torch import u64
+
+    d = dist.cpu()
+    valid, lengths, iters = [], [], []
+    for K_, Q_, V_ in (tuple(t.cpu() for t in halves[:3]), tuple(t.cpu() for t in halves[3:])):
+        n = V_.sum(1)
+        B, nmax = K_.shape[0], int(n.max()) if K_.shape[0] else 0
+        fq = torch.zeros(B, dtype=torch.int32)
+        ref = torch.zeros(B, dtype=torch.int64)
+        start = torch.zeros((B, nmax), dtype=torch.bool)
+        for c in range(nmax):
+            t, q = K_[:, c], Q_[:, c]
+            brk = (c < n) & ((c == 0) | ~u64.ule(t - ref, d))
+            start[:, c] = brk
+            lt = q < fq
+            fq = torch.where(brk | lt, q, fq)
+            ref = torch.where(brk | lt, t, ref)
+        for b in range(B):
+            nb = int(n[b])
+            valid.append(nb)
+            if nb == 0:
+                iters.append(0)
+                continue
+            st = np.flatnonzero(start[b, :nb].numpy())
+            lengths += np.diff(np.append(st, nb)).tolist()
+            it = 0
+            for c0 in range(0, nb, 32):
+                end = min(32, nb - c0)
+                br = st[(st >= c0) & (st < c0 + end) & (st > 0)] - c0
+                s0 = int(br[-1]) + 1 if len(br) else (1 if c0 == 0 else 0)
+                it += len(br) + (s0 < end)
+            iters.append(it)
+    valid, iters = np.array(valid), np.array(iters)
+    return {"halves": len(valid), "valid_per_half_mean": float(valid.mean()),
+            "valid_per_half_max": int(valid.max()), "runs": len(lengths),
+            "run_len_mean": float(np.mean(lengths)) if lengths else 0.0,
+            "run_len_max": int(max(lengths)) if lengths else 0,
+            "warp_steps": int(iters.sum()), "warp_steps_max_half": int(iters.max())}
+
+
+def vote_lr_launch_floor(B: int):
+    """The device time of an empty kernel at vote_lr.cu's launch shape (B
+    blocks of 64 threads; its entry point gdiet_vote_lr_empty), or None
+    where the trace shows none."""
+    import ctypes
+
+    import torch
+
+    from gdiet_tpu_torch.ops import extd2
+
+    lib = extd2._library("vote_lr")
+    fn = lib.gdiet_vote_lr_empty
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int64, ctypes.c_void_p]
+
+    def empty():
+        check(fn(B, torch.cuda.current_stream().cuda_stream) == 0, "the empty kernel failed")
+
+    return device_ms(empty, "vote_lr_empty")
+
+
 def vote_lr_vs_plain(calls: dict, cuda: bool, what: str) -> dict:
     """Both entry points of csrc/vote_lr.cu (halves in place)
     against the plain loops on the concatenated stream over the columns of
     ``_stream_columns`` (the path's plain version), on one captured batch:
     round 1's 7 outputs and round 2's packed [B, 16] block exact. Times as
-    kernel_vs_plain's (the plain loops one run each); bounds from this
-    stream (stream_bytes plus per-read inputs and outputs, or the valid
-    columns' operations) and the serial floor (the longest row's walked
-    columns x the cycles of one column's chain)."""
+    kernel_vs_plain's (the plain loops one run each) and each entry
+    point's device time; bounds from this stream (stream_bytes plus
+    per-read inputs and outputs, or the valid columns' operations); the
+    stream as the kernel's warps walk it (``lr_vote_walk``: valid columns
+    per half, run lengths, scan iterations) and the serial floor (the
+    longest half's scan iterations x VOTE_LR_STEP_CYCLES; twice that for
+    round 2's two windows); the warps each entry point launches; the launch
+    floor (an empty kernel's device time at the same launch shape)."""
     from gdiet_tpu_torch.ops import vote
     from gdiet_tpu_torch.pipeline import lr_step
 
@@ -2071,12 +2175,15 @@ def vote_lr_vs_plain(calls: dict, cuda: bool, what: str) -> dict:
     err2 = check_equal([got2], [ref2], ("vote2",), f"vote2_pair on {what}")
     B, A = fok.shape
     sb = stream_bytes(fok, rok)
-    floor = sb["longest_row_columns"] * VOTE_LR_CYCLES_PER_COLUMN / SM_CLOCK_HZ * 1e3
+    walk = lr_vote_walk(halves, dist)
+    # the longest half's warp: its scan iterations (round 2 scans two windows)
+    floor = walk["warp_steps_max_half"] * VOTE_LR_STEP_CYCLES / SM_CLOCK_HZ * 1e3
     ops = float(sb["valid_columns"] * VOTE_LR_OPS_PER_COLUMN)
     r1 = {**t1, "max_abs_err": err1, **bound(sb["stream_bytes"] + B * 20 + B * K * 32 + B * 4, ops),
-          "serial_floor_ms": floor, "rows_full": int((ref1["out_len"] == K).sum())}
+          "serial_floor_ms": floor, "rows_full": int((ref1["out_len"] == K).sum()),
+          "warps": 2 * B if K <= 32 else B}
     r2 = {**t2, "max_abs_err": err2, **bound(sb["stream_bytes"] + B * 32 + B * 64, 2 * ops),
-          "serial_floor_ms": floor,
+          "serial_floor_ms": 2 * floor, "warps": 2 * B,
           "windows_open": int((hi1 > lo1 + 1).sum() + (hi2 > lo2 + 1).sum()),
           "best_runs": int((ref2[:, 0] > 0).sum() + (ref2[:, 8] > 0).sum())}
     for r, name, fn in ((r1, "vote_lr_kernel",
@@ -2089,8 +2196,11 @@ def vote_lr_vs_plain(calls: dict, cuda: bool, what: str) -> dict:
             r["wrapper_host_us"] = host_us(fn)
             if r["device_ms"]:
                 r["device_share_of_bound"] = r["bound_ms"] / r["device_ms"]
-    return {"what": what, "B": B, "M": 2 * (A + 1), "K": K, **sb,
-            "plain_columns_visited": len(cols), "round1": r1, "round2": r2}
+    out = {"what": what, "B": B, "M": 2 * (A + 1), "K": K, **sb, "walk": walk,
+           "plain_columns_visited": len(cols), "round1": r1, "round2": r2}
+    if cuda:
+        out["launch_floor_device_ms"] = vote_lr_launch_floor(B)
+    return out
 
 
 def phase_lr(device, n_timed: int, genome_len: int, card: str, B: int = LR_BATCH) -> tuple:
@@ -2273,6 +2383,7 @@ def phase_ont(device, n_timed: int, genome_len: int, card: str, B: int = ONT_BAT
            "dp_calls_in_batch": len(seen), "vote": vote_run, "card": card}
     say("ont", **res)
     res["dp_calls"] = seen  # for kernel_int16
+    res["vote_calls"] = calls  # for prev_vote_lr
     return res
 
 
@@ -2498,6 +2609,140 @@ def phase_prev_band(lib, card: str, calls: dict) -> dict:
     return out
 
 
+def phase_prev_vote_lr(lib, card: str, calls: dict) -> dict:
+    """``--prev DIR`` with an earlier ``vote_lr.cu`` (same C entry points,
+    e.g. one thread a read over ``vote_tile.cuh``'s tiles, which DIR then
+    holds beside it): on the vote calls of the HiFi and ONT batches
+    (``calls``: {path: capture_lr_votes' calls}) both entry points of the
+    earlier source and the checkout's, each alone on preallocated outputs:
+    outputs equal (exact), timed in turns (earlier, current, current,
+    earlier) by device time (torch.profiler) and CUDA events (median of
+    KERNEL_ROUNDS rounds; the host's enqueue bounds these at this size).
+    The checkout's device time must not be longer beyond 1%."""
+    import torch
+
+    from gdiet_tpu_torch.ops import extd2, vote
+
+    cur = extd2._library("vote_lr")
+    runs = []
+    for path, c in calls.items():
+        (a1, _), = c["vote_lr"]
+        (a2, _), = c["vote2_pair"]
+        halves, (ex, dist, cov, K) = a1[:6], a1[6:10]
+        wins = a2[8:12]
+        B, A, ld, ptrs = vote._halves(*halves)
+        dev = halves[0].device
+
+        def entries(lib_):
+            o1 = {n: torch.empty((B,) if n == "out_len" else (B, K),
+                                 dtype=torch.int64 if n.endswith("_t") else torch.int32,
+                                 device=dev) for n in vote.LR_OUTPUTS}
+            o2 = torch.empty((B, 16), dtype=torch.int32, device=dev)
+
+            def r1():
+                rc = lib_.gdiet_vote_lr(*ptrs, ld, ex.data_ptr(), dist.data_ptr(), cov.data_ptr(),
+                                        *(o1[n].data_ptr() for n in vote.LR_OUTPUTS), B, A, K,
+                                        extd2._stream(dev))
+                check(rc == 0, f"vote_lr failed: CUDA error {rc}")
+                return o1
+
+            def r2():
+                rc = lib_.gdiet_vote2_pair(*ptrs, ld, ex.data_ptr(), dist.data_ptr(),
+                                           *(w.data_ptr() for w in wins), o2.data_ptr(), B, A,
+                                           extd2._stream(dev))
+                check(rc == 0, f"vote2_pair failed: CUDA error {rc}")
+                return o2
+            return r1, r2
+
+        (old1, old2), (new1, new2) = entries(lib), entries(cur)
+        err = max(check_equal([old1()[n] for n in vote.LR_OUTPUTS],
+                              [new1()[n] for n in vote.LR_OUTPUTS], vote.LR_OUTPUTS,
+                              f"earlier and current vote_lr on the {path} batch"),
+                  check_equal([old2()], [new2()], ("vote2",),
+                              f"earlier and current vote2_pair on the {path} batch"))
+        for entry, old, new, kern in (("vote_lr", old1, new1, "vote_lr"),
+                                      ("vote2_pair", old2, new2, "vote2_pair")):
+            dev_ms = [device_ms(f, kern) for f in (old, new, new, old)]
+            ev_ms = [rounds_ms(f) for f in (old, new, new, old)]
+            r = {"path": path, "entry": entry, "B": B, "M": 2 * (A + 1), "K": K,
+                 "events_turns_ms": ev_ms, "max_abs_err": err}
+            if None not in dev_ms:
+                o, n = (dev_ms[0] + dev_ms[3]) / 2, (dev_ms[1] + dev_ms[2]) / 2
+                r.update(earlier_device_ms=o, current_device_ms=n, device_speedup=o / n,
+                         device_turns_ms=dev_ms)
+            runs.append(r)
+    out = {"runs": runs, "card": card}
+    say("prev_vote_lr", **out)
+    for r in runs:
+        if "current_device_ms" in r:
+            check(r["current_device_ms"] <= 1.01 * r["earlier_device_ms"],
+                  f"{r['entry']} slower than the earlier source on the {r['path']} batch: "
+                  f"{r['current_device_ms']:.4f} against {r['earlier_device_ms']:.4f} ms")
+    return out
+
+
+def se_fold_call() -> tuple:
+    """The SE step's DP call as the fold takes it (phase kernel_fold's
+    seeded 6,272 rows at 160 lanes), on its route's lane state."""
+    import torch
+
+    from gdiet_tpu_torch.ops.extd2 import route_state_dtype
+
+    L = KERNEL_SHAPE["L"]
+    args = tuple(torch.from_numpy(a).cuda() for a in dp_pairs(KERNEL_SHAPE["N"], L,
+                                                                 KERNEL_SHAPE["qlen"]))
+    return args + (PARAMS, L), {"fold": True, "state_dtype": route_state_dtype(PARAMS, L,
+                                                                               fold=True)}
+
+
+def phase_prev_fold_i16(lib, card: str, calls: dict) -> dict:
+    """``--prev DIR`` with an earlier ``extd2_fold_i16.cu`` (same C entry
+    point, e.g. one in which every thread computes the row scalars and
+    walks H0; ``dp_pair.cuh`` beside it in DIR): on the PE step's captured
+    fold call and the SE fold call (``calls``) the earlier source, the
+    checkout's and ``extd2_fold.cu`` (int32), all through ``extd2_batch``:
+    score and dirs exact, timed in turns (int32, earlier, current, current,
+    earlier, int32; each the median of KERNEL_ROUNDS rounds). The
+    checkout's must not be slower than the earlier source beyond 1%."""
+    from gdiet_tpu_torch.ops import extd2
+
+    cur = extd2._library("extd2_fold_i16")
+    runs = []
+    for path, ((q, t, ln, bd, params, L), kw) in calls.items():
+        kw = {k: v for k, v in kw.items() if k != "state_dtype"}
+
+        def new():
+            return extd2.extd2_batch(q, t, ln, bd, params, L, **kw, state_dtype="int16")
+
+        def old():
+            extd2._libs["extd2_fold_i16"] = lib
+            try:
+                return new()
+            finally:
+                extd2._libs["extd2_fold_i16"] = cur
+
+        def k32():
+            return extd2.extd2_batch(q, t, ln, bd, params, L, **kw)
+
+        a, b, c = old(), new(), k32()
+        err = max(check_equal(a, b, DP_OUTPUTS, f"earlier and current extd2_fold_i16 on {path}"),
+                  check_equal(b, c, DP_OUTPUTS, f"extd2_fold_i16 against int32 on {path}"))
+        del a, b, c
+        ms = [rounds_ms(f) for f in (k32, old, new, new, old, k32)]
+        o, n, i32 = (ms[1] + ms[4]) / 2, (ms[2] + ms[3]) / 2, (ms[0] + ms[5]) / 2
+        runs.append({"path": path, "rows": int(q.shape[0]), "live_rows": int((ln > 0).sum()),
+                     "Lmax": L, "earlier_ms": o, "current_ms": n, "int32_ms": i32,
+                     "speedup": o / n, "current_over_int32": n / i32, "turns_ms": ms,
+                     "max_abs_err": err})
+    out = {"runs": runs, "card": card}
+    say("prev_fold_i16", **out)
+    for r in runs:
+        check(r["current_ms"] <= 1.01 * r["earlier_ms"],
+              f"extd2_fold_i16 slower than the earlier source on {r['path']}: "
+              f"{r['current_ms']:.3f} against {r['earlier_ms']:.3f} ms")
+    return out
+
+
 def int16_err(report: dict, kernel: str) -> int:
     """The largest difference of ``kernel`` against its plain version and
     the int32 kernel over phase kernel_int16's runs (0)."""
@@ -2594,6 +2839,21 @@ def phase_prev_full(lib, card: str, calls: dict) -> dict:
     return out
 
 
+def fold_i16_launch(registers: int, L: int = 160) -> dict:
+    """extd2_fold_i16.cu's launch at the SE/PE width (Lmax = Lt = L): a
+    block of T / 2 compute threads and the filler and walker warps, its
+    dynamic shared memory (the row and tap rings, the pass shift's words,
+    the warps' last pairs, the queries and the target), resident blocks an
+    SM, and the two helper warps' share of the block's warps."""
+    from gdiet_tpu_torch.ops import dp_fold
+
+    _, T, _ = dp_fold.fold_geometry(L)
+    NP, W = T // 2, T // 64
+    shm = 2 * 4 * 48 + 2 * NP * 8 + (8 * NP + 2 * W * 3) * 4 + 2 * L + T
+    return {"lanes": T, "threads": NP + 64, "shared_bytes": shm,
+            **blocks_per_sm(registers, shm, NP + 64), "helper_warp_share": 2 / (W + 2)}
+
+
 def phase_kernel_int16(card: str, calls: dict, built=None, seeded=None) -> dict:
     """Each int16 kernel against the int32 kernel of its layout and its
     plain int16 version on the DP calls the paths made (``calls``: {path:
@@ -2634,7 +2894,9 @@ def phase_kernel_int16(card: str, calls: dict, built=None, seeded=None) -> dict:
             "generic": [int16_run(c, f"the generic step's DP call at Lmax {c[0][5]}",
                                   c[0][5] == 512)
                         for c in calls["generic"]],
-            "pe": [int16_run(calls["pe"][0], "the PE step's DP call", True)]}
+            "pe": [int16_run(calls["pe"][0], "the PE step's DP call", True)],
+            "se_fold": [int16_run(calls["se_fold"][0], "the SE fold call (6,272 seeded rows)",
+                                  False)]}
     hifi = calls["hifi"]
     check(any(c[1].get("band_budget") is not None
               and dp_band.band_shape(c[0][5], c[1]["Lt"], c[1]["band_budget"],
@@ -2666,6 +2928,9 @@ def phase_kernel_int16(card: str, calls: dict, built=None, seeded=None) -> dict:
             sass = sass_vi_ops(built[name][0])
             out[name] = {"ptxas": ptxas_info(built[name][2]), "sass": sass,
                          "dpx_16x2": dp16x2_ops(sass)}
+        fold_ptxas = list(out["extd2_fold_i16"]["ptxas"].values())
+        if fold_ptxas:  # a build taken from _build/ has no ptxas log
+            out["extd2_fold_i16"]["launch"] = fold_i16_launch(fold_ptxas[0]["registers"])
     out["card"] = card
     say("kernel_int16", **out)
     for path, ratio in routed.items():
@@ -3004,7 +3269,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke run of gdiet_tpu_torch.")
     ap.add_argument("--prev", type=pathlib.Path, default=None,
                     help="a directory with earlier extd2.cu, extd2_fold.cu, vote_scan.cu, "
-                         "extd2_band_i16.cu or extd2_i16.cu sources: time them in turns "
+                         "extd2_band_i16.cu, extd2_i16.cu, vote_lr.cu or extd2_fold_i16.cu "
+                         "sources (and the headers they include): time them in turns "
                          "against the checkout's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3045,13 +3311,20 @@ def main(argv=None) -> int:
     glr = phase_golden_lr(card)
     lr, lr_votes = phase_lr("cuda", LR_TIMED, GENOME_LEN, card)
     kvl = phase_kernel_vote_lr("cuda", card, lr_votes, built=built)
-    del lr_votes
     mesh_lr = phase_mesh_lr("cuda", card)
     ont = phase_ont("cuda", ONT_TIMED, GENOME_LEN, card)
+    if "vote_lr" in prev:
+        phase_prev_vote_lr(prev["vote_lr"][0], card, {"hifi": lr_votes, "ont": ont["vote_calls"]})
+    del lr_votes
     seeded = seeded_full_calls()
+    se_fold = [se_fold_call()]
     k16 = phase_kernel_int16(card, {"se": m["dp_calls"], "generic": gen["dp_calls"],
-                                    "pe": pe["dp_calls"], "hifi": lr["dp_calls"],
-                                    "ont": ont["dp_calls"]}, built, seeded)
+                                    "pe": pe["dp_calls"], "se_fold": se_fold,
+                                    "hifi": lr["dp_calls"], "ont": ont["dp_calls"]}, built, seeded)
+    if "extd2_fold_i16" in prev:
+        phase_prev_fold_i16(prev["extd2_fold_i16"][0], card,
+                            {"pe": pe["dp_calls"][0], "se": se_fold[0]})
+    del se_fold
     if "extd2_band_i16" in prev:
         phase_prev_band(prev["extd2_band_i16"][0], card,
                         {"hifi": lr["dp_calls"], "ont": ont["dp_calls"]})
@@ -3067,6 +3340,7 @@ def main(argv=None) -> int:
     se_kernel = m["dp_kernel"]
     se_errs = [m["step_dp_max_abs_err"]] + [r["dp_max_abs_err"] for r in mesh["runs"]]
     k16_pe = k16["runs"]["pe"][0]
+    pe_i16 = pe["step_dp_state_dtype"] == "int16"
     k16_band = next(r for r in k16["runs"]["hifi"]
                     if r["kernel"] == "extd2_band_i16" and "plain_ms" in r)
     kv_main = kv["runs"][0]  # the main phase's stream (M = 130, K = 2)
@@ -3107,15 +3381,16 @@ def main(argv=None) -> int:
          **{x: k16_band[x] for x in bound_keys}, "library_ms": None},
         {"name": "extd2_fold_i16", "route": "cuda", "source": src + "extd2_fold_i16.cu",
          "replaces": "gdiet_tpu/ops/dp_pallas.py:428",
-         "launches": pe["extd2_fold_i16_launches"],  # 0: the PE route keeps int32
-         "max_abs_err": int16_err(k16, "extd2_fold_i16"),
+         "launches": pe["extd2_fold_i16_launches"],  # the PE route's fold at 160 lanes
+         "max_abs_err": max([int16_err(k16, "extd2_fold_i16")]
+                            + ([pe["step_dp_max_abs_err"]] if pe_i16 else [])),
          "ms": k16_pe["int16_ms"], "plain_ms": k16_pe["plain_ms"],
          **{x: k16_pe[x] for x in bound_keys}, "library_ms": None},
         {"name": "extd2_fold", "route": "cuda", "source": src + "extd2_fold.cu",
          "replaces": "gdiet_tpu/ops/dp_pallas.py:419",
-         "launches": pe["extd2_fold_launches"],
-         "max_abs_err": max(kf["max_abs_err"], kf_pe["max_abs_err"],
-                            pe["step_dp_max_abs_err"]),
+         "launches": pe["extd2_fold_launches"],  # 0 where the PE route takes int16
+         "max_abs_err": max([kf["max_abs_err"], kf_pe["max_abs_err"]]
+                            + ([] if pe_i16 else [pe["step_dp_max_abs_err"]])),
          "ms": kf["kernel_ms"], "plain_ms": kf["plain_ms"],
          **{x: kf[x] for x in bound_keys}, "library_ms": None},
         {"name": "backtrack_band", "route": "cuda", "source": src + "backtrack_band.cu",

@@ -190,6 +190,14 @@ _DP_ROUTES = {"int32": {"extd2": ("extd2", launches),
 # bucket. Every other shape is unmeasured and keeps int32.
 I16_FULL_WIDTH_SHAPES = frozenset({(112, 112), (128, 128), (160, 160), (192, 192), (256, 256),
                                    (512, 512), (512, 1024)})
+# the same for the fold (csrc/extd2_fold_i16.cu against csrc/extd2_fold.cu):
+# the SE and PE steps' 160-lane calls (6,272 and 5,120 rows), where the int16
+# fold with its filler and walker warps measured faster than int32; other
+# widths are unmeasured and keep int32.
+I16_FOLD_SHAPES = frozenset({(160, 160)})
+# csrc/extd2_fold_i16.cu's widest fold: a block of T / 2 compute threads and
+# the filler and walker warps holds at most 1,024 threads
+FOLD_I16_MAX_LANES = 1920
 
 
 def route_state_dtype(params, Lmax: int, Lt: int | None = None, fold: bool = False,
@@ -201,10 +209,12 @@ def route_state_dtype(params, Lmax: int, Lt: int | None = None, fold: bool = Fal
     kernel of the call's layout faster, else int32. The banded window:
     int16 (0.75-0.86x at the HiFi buckets at band 500 and the ONT chunk at
     band 1300). The full width: int16 at ``I16_FULL_WIDTH_SHAPES``. The
-    fold: int32 (0.99x and 1.02x in two runs: no faster)."""
-    if fold or dp.safe_state_dtype(params) != "int16":
+    fold: int16 at ``I16_FOLD_SHAPES``."""
+    if dp.safe_state_dtype(params) != "int16":
         return "int32"
     Lt = Lmax if Lt is None else Lt
+    if fold:
+        return "int16" if (dp.round16(Lmax), dp.round16(Lt)) in I16_FOLD_SHAPES else "int32"
     if band_budget is not None and dp_band.window_geometry(
             band_budget, dp.round_up(Lt, 128), unroll) is not None:
         return "int16"
@@ -455,6 +465,9 @@ def extd2_batch(query, target, lens, band, params, Lmax: int, tlens=None,
                                 unroll, state_dtype)
     if fold:
         H, T, Tn = dp_fold.fold_geometry(Lmax, Lt)
+        if state_dtype == "int16" and T > FOLD_I16_MAX_LANES:
+            raise ValueError(f"extd2: the int16 fold takes at most {FOLD_I16_MAX_LANES} lanes "
+                             f"(Lt <= {FOLD_I16_MAX_LANES - 48}), not {T}")
         _, Nrows, C = dp_fold.fold_split(N, T, state_dtype)
         score = torch.empty(((C + 1) * Nrows,), dtype=torch.int32, device=dev)
         dirs = torch.empty(((C + 1) * H, Nrows, T), dtype=torch.uint8, device=dev)

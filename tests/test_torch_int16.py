@@ -264,16 +264,19 @@ def test_int16_outside_the_bound_raises(layout):
 def test_short_read_route():
     """The short-read step's DP takes int16 at the full widths where the
     int16 kernel measured faster (112, 128, 160, 192, 256 and 512 lanes;
-    100 bp reads round to 112); int32 at unmeasured widths (96, 144,
-    1024 lanes), for the fold (no faster) and for any scoring outside the
-    bound."""
-    from gdiet_tpu_torch.ops.extd2 import route_state_dtype
+    100 bp reads round to 112) and for the fold at 160 lanes (the SE and PE
+    steps' width, where csrc/extd2_fold_i16.cu measured faster than
+    csrc/extd2_fold.cu); int32 at unmeasured widths (96, 144, 1024 lanes;
+    the fold at 128 and 256) and for any scoring outside the bound."""
+    from gdiet_tpu_torch.ops.extd2 import I16_FOLD_SHAPES, route_state_dtype
 
     sr = SCORING["sr"]
     assert [route_state_dtype(sr, L) for L in (100, 112, 128, 150, 160, 192, 256, 512)] == [
         "int16"] * 8
     assert {route_state_dtype(sr, L) for L in (96, 144, 1024)} == {"int32"}
-    assert {route_state_dtype(sr, L, fold=True) for L in (160, 256)} == {"int32"}
+    assert I16_FOLD_SHAPES == {(160, 160)}
+    assert [route_state_dtype(sr, L, fold=True) for L in (150, 160)] == ["int16"] * 2
+    assert {route_state_dtype(sr, L, fold=True) for L in (128, 256)} == {"int32"}
     unsafe = (2, 8, 12, 2, 8190, 1)
     assert {route_state_dtype(unsafe, L, fold=f) for L in (160, 256)
             for f in (False, True)} == {"int32"}
@@ -364,6 +367,37 @@ def test_cuda_int16_kernel_band(name):
 @pytest.mark.parametrize("name", ["fold_sr", "fold_hifi"])
 def test_cuda_int16_kernel_fold(name):
     _cuda_case(name, extd2.fold_i16_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [5120, 6272])
+def test_cuda_int16_fold_at_path_shapes(N):
+    """The fold at the PE step's call (5,120 rows of 4,096 pairs: 384
+    kernel rows x 14 passes) and the SE step's (6,272 rows: 576 x 11), 160
+    lanes, where the route takes int16: csrc/extd2_fold_i16.cu (filler and
+    walker warps) launched once, score and dirs exact against the int32 kernel and
+    the plain int16 fold."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    prm, L = SCORING["sr"], 160
+    assert extd2.route_state_dtype(prm, L, fold=True) == "int16"
+    rng = np.random.default_rng(N)
+    Q = rng.integers(0, 4, (N, L), dtype=np.uint8)
+    T = Q.copy()
+    T[rng.random(T.shape) < 0.01] = 1
+    Q[rng.random(Q.shape) < 0.002] = 4
+    lens = rng.integers(100, 151, N).astype(np.int32)
+    lens[::97] = 0
+    band = rng.integers(150, 201, N).astype(np.int32)
+    q, t, ln, bd = (torch.from_numpy(a).cuda() for a in (Q, T, lens, band))
+    n0 = extd2.fold_i16_launches.n
+    got = extd2.extd2_batch(q, t, ln, bd, prm, L, fold=True, state_dtype="int16")
+    torch.cuda.synchronize()
+    assert extd2.fold_i16_launches.n == n0 + 1
+    ref32 = extd2.extd2_batch(q, t, ln, bd, prm, L, fold=True)
+    plain = dp_fold.extd2_fold(q, t, ln, bd, prm, L, None, None, "int16")
+    for key, a, b, c in zip(OUTPUTS[:2], got, ref32, plain):
+        assert torch.equal(a, b) and torch.equal(a, c), key
 
 
 @pytest.mark.cuda

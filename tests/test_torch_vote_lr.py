@@ -1,7 +1,8 @@
 """The long-read votes: the port's plain loops (``lr_step._vote_scan_lr``,
 ``lr_step._vote2_scan``) vs gdiet_tpu's, the halves-in-place wrappers of
 ``ops/vote.py`` on the CPU vs the plain loops on the concatenated stream,
-and ``csrc/vote_lr.cu`` vs the plain loops on the card.
+and ``csrc/vote_lr.cu`` vs the plain loops on the card (seeded streams,
+ONT-sized halves and ``test_torch_vote_lr_warp.py``'s trap streams).
 
 Seeded hit streams made with numpy, laid out as the long-read front lays
 them out (forward hits, a barrier column, reverse hits, a barrier column;
@@ -210,18 +211,29 @@ def test_wrappers_on_cpu_equal_plain(K, pad):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,A,K", [
-    (256, 512, 5),  # the HiFi front's stream (vote budget 512, M = 1,026)
-    (16, 4096, 3),  # the ONT front's stream (vote budget 4,096, M = 8,194)
-    (300, 30, 1),
-    (70, 40, 60),  # more slots than shared memory holds: slots in the outputs
+@pytest.mark.parametrize("B,A,K,kind", [
+    (256, 512, 5, "seeded"),  # the HiFi front's stream (vote budget 512, M = 1,026)
+    (16, 4096, 3, "seeded"),  # the ONT front's stream (vote budget 4,096, M = 8,194)
+    (300, 30, 1, "seeded"),
+    (70, 40, 60, "seeded"),  # more slots than shared memory holds: slots in the outputs
+    (16, 4096, 3, "ont_rows"),  # ONT-sized halves: a run of ~600 columns
+    # tests/test_torch_vote_lr_warp.py's trap streams, at 1, 5 and 40 slots
+    *[(0, 0, K, case) for case in ("cross_step", "q_tie_min", "wrap", "own_runs", "long_run",
+                                   "full_lists", "empty_halves", "window_start")
+      for K in (1, 5, 40)],
 ])
-def test_cuda_kernel_matches_plain(B, A, K):
+def test_cuda_kernel_matches_plain(B, A, K, kind):
     """Both kernels on valid-first halves in place (row stride A + 3)
     against the plain loops over every column of the concatenation."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
-    s = lr_streams(B, A, B + A + K, holes=False)
+    if kind == "seeded":
+        s = lr_streams(B, A, B + A + K, holes=False)
+    else:
+        import test_torch_vote_lr_warp as warp
+
+        s = (warp.make_stream(warp.ont_rows(B, 7), 7, A) if kind == "ont_rows"
+             else warp.make_stream(warp.case_rows(kind), 41))
     h = halves(s, "cuda", pad=3)
     per_row = [_t(s[n], "cuda") for n in ("extracted", "vt_distance")]
     windows = [_t(s[n], "cuda") for n in ("lo1", "hi1", "lo2", "hi2")]
