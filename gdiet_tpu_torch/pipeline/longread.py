@@ -23,6 +23,17 @@ the host, the reference's own routing (``stats["host_dp_segments"]``).
 Reads outside the fixed-shape envelope map through the scalar oracle
 ``olr.map_read_lr`` (``stats["fallback_reads"]``).
 
+Each phase of a batch is a span of ``utils/profile.py::PROFILE`` (under
+the caller's span, with the batch's id): ``lr.front`` (encode, H2D,
+enqueue), ``lr.front_wait`` (the meta's D2H), ``lr.host_mid`` (votes,
+round 2, segment prep), ``lr.dp_dispatch`` with ``lr.host_dp`` per host
+segment, ``lr.dp_fetch`` with ``lr.dp_wait`` per chunk's D2H,
+``lr.finish`` and ``lr.oracle`` with ``lr.oracle_read`` per read on the
+pool (its ``len`` and ``reason``: ``len`` over the envelope, ``front``
+sent back by the device front, ``host_only`` under ``-T`` or debug).
+Counters: ``front_reads`` (reads sent to the front),
+``front_fallback_reads`` (those its meta sent back) and ``oracle_bases``.
+
 ``LongReadMapper(mesh=...)`` runs the front over a (data, ref) mesh
 (``parallel/dist.py::sharded_lr_front``: reads split across the data rows,
 the index split by key range, the shards' hit streams merged before the
@@ -49,7 +60,7 @@ from gdiet_tpu_torch.parallel.dist import sharded_lr_front
 from gdiet_tpu_torch.pipeline.device_step import (_pattern_tables, pack_ops,
                                                   step_config, unpack_ops)
 from gdiet_tpu_torch.pipeline.lr_step import lr_front, unpack_lr_meta
-from gdiet_tpu_torch.utils.profile import PROFILE, Stage
+from gdiet_tpu_torch.utils.profile import PROFILE
 
 F32 = np.float32
 U32 = 0xFFFFFFFF
@@ -79,7 +90,8 @@ class LongReadMapper:
         # fallbacks release the GIL inside numpy and C
         self.n_threads = max(1, n_threads)
         self._pool = None
-        self.stats = {"fallback_reads": 0, "n_reads": 0, "host_dp_segments": 0}
+        self.stats = {"fallback_reads": 0, "n_reads": 0, "host_dp_segments": 0,
+                      "front_reads": 0, "front_fallback_reads": 0, "oracle_bases": 0}
         # mark(name), when set, is called at each phase boundary of a batch
         # (front, host_mid, dp, backtrack, d2h, host_finish)
         self.mark = None
@@ -157,46 +169,58 @@ class LongReadMapper:
 
     def _start_batch(self, reads):
         B = len(reads)
+        batch = PROFILE.next_batch()
         results: list = [None] * B
         lens = np.array([r.l_seq for r in reads], np.int64)
+        # why each read takes the oracle ("" for none yet)
+        why = np.full(B, "", object)
         if self.mo.sdust_thres > 0 or debug.enabled():
-            host_only = np.ones(B, bool)
+            why[:] = "host_only"
         else:
-            host_only = (lens > self.Lmax) | (lens == 0)
-        device_idx = np.where(~host_only)[0]
+            why[(lens > self.Lmax) | (lens == 0)] = "len"
+        device_idx = np.where(why == "")[0]
+        self.stats["front_reads"] += len(device_idx)
         front = None
         if len(device_idx):
-            front = self._dispatch_front([reads[i] for i in device_idx],
-                                         lens[device_idx])
-        return reads, results, lens, host_only, device_idx, front
+            with PROFILE.span("lr.front", batch=batch):
+                front = self._dispatch_front([reads[i] for i in device_idx],
+                                             lens[device_idx])
+        return reads, results, lens, why, device_idx, front, batch
 
     def _mid_batch(self, st):
         """Host vote + round-2 + job prep; ends with the segment DP chunks
         enqueued on the device."""
-        reads, results, lens, host_only, device_idx, front = st
+        reads, results, lens, why, device_idx, front, batch = st
         dev = None
         if len(device_idx):
-            dev = self._map_device_mid([reads[i] for i in device_idx],
-                                       lens[device_idx], results, device_idx,
-                                       front)
-        return reads, results, lens, host_only, device_idx, dev
+            dev = self._map_device_mid(lens[device_idx], results, device_idx, front, batch)
+        return reads, results, lens, why, device_idx, dev, batch
 
     def _tail_batch(self, st):
         """Fetch the DP results, finish device reads, run host fallbacks."""
-        reads, results, lens, host_only, device_idx, dev = st
+        reads, results, lens, why, device_idx, dev, batch = st
         if dev is not None:
-            fb = self._map_device_tail(dev)
-            host_only[device_idx[fb]] = True
-        self.stats["fallback_reads"] += int(host_only.sum())
+            fb = self._map_device_tail(dev, batch)
+            why[device_idx[fb]] = "front"
+            self.stats["front_fallback_reads"] += int(fb.sum())
+        fb_idx = [int(i) for i in np.where(why != "")[0]]
+        self.stats["fallback_reads"] += len(fb_idx)
         self.stats["n_reads"] += len(reads)
-        fb_idx = [int(i) for i in np.where(host_only)[0]]
-        fb_res = self._map_parallel(
-            lambda i: olr.map_read_lr(self.mi.oracle_view(), reads[i].seq, self.mo,
-                                      self.mid_occ, reads[i].name),
-            fb_idx)
-        for i, r in zip(fb_idx, fb_res):
-            results[i] = r
+        self.stats["oracle_bases"] += int(lens[fb_idx].sum())
+        if fb_idx:
+            with PROFILE.span("lr.oracle", batch=batch) as parent:
+                fb_res = self._map_parallel(
+                    lambda i: self._oracle_read(reads[i], why[i], parent), fb_idx)
+            for i, r in zip(fb_idx, fb_res):
+                results[i] = r
         return results
+
+    def _oracle_read(self, rec, reason: str, parent):
+        """One read through the scalar oracle; ``parent`` is given since
+        the pool's threads inherit no span."""
+        with PROFILE.span("lr.oracle_read", parent=parent, len=rec.l_seq, reason=reason):
+            return olr.map_read_lr(self.mi.oracle_view(), rec.seq, self.mo,
+                                   self.mid_occ, rec.name)
 
     # ------------------------------------------------------------------
     def _dispatch_front(self, reads, lens_np):
@@ -225,12 +249,25 @@ class LongReadMapper:
         self._mark("front")
         return codes, meta
 
-    def _map_device_mid(self, reads, lens_np, results, result_idx, front):
-        mo, mi = self.mo, self.mi
-        B = len(reads)
+    def _map_device_mid(self, lens_np, results, result_idx, front, batch):
         codes, meta_dev = front
-        with PROFILE.stage(Stage.DEVICE_FUSED):
-            meta = unpack_lr_meta(meta_dev.cpu().numpy(), self.cfg.K)
+        with PROFILE.span("lr.front_wait", batch=batch):
+            meta = meta_dev.cpu().numpy()
+        with PROFILE.span("lr.host_mid", batch=batch):
+            fallback, per_read, strands, all_jobs = self._host_mid(
+                meta, codes, lens_np, results, result_idx)
+        # ---- batched segment DP (bucketed), enqueued on the device ----
+        with PROFILE.span("lr.dp_dispatch", batch=batch):
+            ezs, pending = self._align_jobs_dispatch(all_jobs, lens_np, fallback)
+        return (results, result_idx, lens_np, fallback, per_read, strands,
+                all_jobs, ezs, pending)
+
+    def _host_mid(self, meta, codes, lens_np, results, result_idx):
+        """The device front's meta to segment jobs on the host: the
+        filtered VtSeqs, round-2 accepts, concat graph and windows."""
+        mo, mi = self.mo, self.mi
+        B = len(lens_np)
+        meta = unpack_lr_meta(meta, self.cfg.K)
         fallback = meta["fallback"].copy()
         lo1, hi1, lo2, hi2 = meta["lo1"], meta["hi1"], meta["lo2"], meta["hi2"]
 
@@ -297,18 +334,15 @@ class LongReadMapper:
             strands[i] = strand
             all_jobs.extend((i, job) for job in jobs)
         self._mark("host_mid")
+        return fallback, per_read, strands, all_jobs
 
-        # ---- batched segment DP (bucketed), enqueued on the device ----
-        ezs, pending = self._align_jobs_dispatch(all_jobs, lens_np, fallback)
-        return (results, result_idx, lens_np, fallback, per_read, strands,
-                all_jobs, ezs, pending)
-
-    def _map_device_tail(self, dev):
+    def _map_device_tail(self, dev, batch):
         (results, result_idx, lens_np, fallback, per_read, strands,
          all_jobs, ezs, pending) = dev
         mo = self.mo
-        self._align_jobs_fetch(ezs, pending)
-        with PROFILE.stage(Stage.HOST_FINISH):
+        with PROFILE.span("lr.dp_fetch", batch=batch):
+            self._align_jobs_fetch(ezs, pending)
+        with PROFILE.span("lr.finish", batch=batch):
             by_read: dict = {}
             for (i, job), ez in zip(all_jobs, ezs):
                 jobs_i, ez_i = by_read.setdefault(i, ([], []))
@@ -331,8 +365,9 @@ class LongReadMapper:
     # ------------------------------------------------------------------
     def _host_extd2(self, qwin, twin):
         mo = self.mo
-        ez = oal.extd2(qwin, twin, mo.a, mo.b, mo.q, mo.e, mo.q2, mo.e2,
-                       mo.bw, mo.zdrop, mo.end_bonus, oal.KSW_EZ_APPROX_MAX)
+        with PROFILE.span("lr.host_dp"):
+            ez = oal.extd2(qwin, twin, mo.a, mo.b, mo.q, mo.e, mo.q2, mo.e2,
+                           mo.bw, mo.zdrop, mo.end_bonus, oal.KSW_EZ_APPROX_MAX)
         return ez.score, list(ez.cigar)
 
     def _align_jobs_dispatch(self, all_jobs, lens_np, fallback):
@@ -423,7 +458,7 @@ class LongReadMapper:
         """Fetch the DP chunks and run-length-encode their ops on the host,
         in dispatch order."""
         for sub, qlens, dev in pending:
-            with PROFILE.stage(Stage.DEVICE_FUSED):  # segment-DP D2H
+            with PROFILE.span("lr.dp_wait"):  # segment-DP D2H
                 packed = dev.cpu().numpy()
             self._mark("d2h")
             score = packed[:, :4].copy().view(np.int32)[:, 0]

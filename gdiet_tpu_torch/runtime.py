@@ -26,7 +26,12 @@ fast path stays off under a mesh, as in ``gdiet_tpu``. With
 ``GDIET_COORDINATOR`` (host:port), ``GDIET_NUM_PROCESSES`` and
 ``GDIET_PROCESS_ID`` set, the process first joins a gloo process group
 (each process maps its own reads) and leaves it when the run ends. ``-v 4``
-adds the five-stage profile of the single-end SAM path.
+adds the five-stage profile of the single-end SAM path, and keeps the
+spans of ``utils/profile.py::PROFILE`` as intervals (as a collecting
+``torch.profiler`` does): ``run_generic`` is the root span ``run``, with
+``run.mapper_init``, ``run.read`` (FASTQ parsing and staging) and
+``run.write`` (records out) beside the mapper's spans; the report prints
+each span's total, self time and count, and the mapper's counters.
 """
 
 from __future__ import annotations
@@ -94,7 +99,9 @@ def _close_and_report(bout, n_mapped: int, verbose: int, cli_line: str,
     _report(verbose, cli_line, t0)
 
 
-def _report(verbose: int, cli_line: str, t0: float) -> None:
+def _report(verbose: int, cli_line: str, t0: float, counters: dict | None = None) -> None:
+    """The run's summary at ``-v 3``; ``-v 4`` adds ``counters`` (the
+    mapper's stats)."""
     if verbose >= 3:
         rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
         print(f"[M::gdiet] Version: {__version__}", file=sys.stderr)
@@ -102,7 +109,7 @@ def _report(verbose: int, cli_line: str, t0: float) -> None:
         print(f"[M::gdiet] Real time: {time.perf_counter() - t0:.3f} sec; "
               f"CPU: {time.process_time():.3f} sec; Peak RSS: {rss:.3f} GB",
               file=sys.stderr)
-        PROFILE.report(sys.stderr)
+        PROFILE.report(sys.stderr, counters if verbose >= 4 else None)
 
 
 def run_sr_sam(mi, mo, query: str, out_path: str | None, n_threads: int,
@@ -394,9 +401,19 @@ def run_generic(mi, mo, variant: str, queries: list, out_path: str | None,
     the segments of a fragment are revcomp'd per ``pe_ori``, paired
     (mm_pair) on their mapping-orientation regs, flipped back and written
     with mate fields."""
+    with PROFILE.span("run"):
+        with PROFILE.span("run.mapper_init"):
+            mapper = _make_mapper(mi, mo, variant, max_read_len, device, n_threads, mesh)
+        _map_and_write(mapper, mi, mo, queries, out_path, verbose, cli_line, t0)
+    _report(verbose, cli_line, t0, mapper.stats)
+    return 0
+
+
+def _map_and_write(mapper, mi, mo, queries: list, out_path: str | None,
+                   verbose: int, cli_line: str, t0: float) -> None:
+    """``run_generic``'s batches through ``mapper.map_stream``, written."""
     from gdiet_tpu_torch.oracle import hit as ohit
 
-    mapper = _make_mapper(mi, mo, variant, max_read_len, device, n_threads, mesh)
     out = _out_stream(out_path)
     sam_mode = bool(mo.flag & cfg.MM_F_OUT_SAM)
     if sam_mode:
@@ -442,29 +459,8 @@ def run_generic(mi, mo, variant: str, queries: list, out_path: str | None,
 
     query_groups = [queries] if len(queries) == 2 else [[q] for q in queries]
     for group in query_groups:
-        frag_batches = list(read_frag_batches(group, mo.mini_batch_size))
-        if mo.split_len > 0:  # --split-reads (ultralong ONT chunking)
-            frag_batches = [
-                [[c] for frag in fb for rec in frag
-                 for c in split_ultralong([rec], mo.split_len)]
-                for fb in frag_batches]
-        # pe_ori-revcomp paired segments before mapping, flip coordinates
-        # back after (worker_for, map.c:1057-1090)
-        flat_batches, flips = [], []
-        for fb in frag_batches:
-            flat, flip = [], []
-            for frag in fb:
-                for j, rec in enumerate(frag):
-                    if len(frag) == 2 and ((j == 0 and (mo.pe_ori >> 1) & 1)
-                                           or (j == 1 and mo.pe_ori & 1)):
-                        flat.append(SeqRecord(
-                            rec.name, samio.revcomp(rec.seq),
-                            rec.qual[::-1] if rec.qual else None, rec.comment))
-                        flip.append(len(flat) - 1)
-                    else:
-                        flat.append(rec)
-            flat_batches.append(flat)
-            flips.append(flip)
+        with PROFILE.span("run.read"):
+            frag_batches, flat_batches, flips = _stage_batches(group, mo)
         for fb, flat, flip, results in zip(frag_batches, flat_batches, flips,
                                            mapper.map_stream(flat_batches)):
             if mo.pe_ori >= 0 and (mo.flag & cfg.MM_F_CIGAR):
@@ -486,12 +482,42 @@ def run_generic(mi, mo, variant: str, queries: list, out_path: str | None,
                 for r in results[idx] or []:
                     r.qs, r.qe = qlen - r.qe, qlen - r.qs
                     r.rev = 0 if r.rev else 1
-            emit_frags(fb, results)
+            with PROFILE.span("run.write"):
+                emit_frags(fb, results)
         _log(verbose, t0, f"mapped {n_mapped} sequences")
     if out is not sys.stdout:
-        out.close()
-    _report(verbose, cli_line, t0)
-    return 0
+        with PROFILE.span("run.write"):
+            out.close()
+
+
+def _stage_batches(group: list, mo):
+    """(frag_batches, flat_batches, flips) of one query group: fragment
+    batches of ``mini_batch_size`` bases (``--split-reads`` cuts long reads
+    into chunks first), flattened, with paired segments revcomp'd per
+    ``pe_ori`` before mapping (worker_for, map.c:1057-1090); ``flips``
+    lists them, so their coordinates flip back after."""
+    frag_batches = list(read_frag_batches(group, mo.mini_batch_size))
+    if mo.split_len > 0:  # --split-reads (ultralong ONT chunking)
+        frag_batches = [
+            [[c] for frag in fb for rec in frag
+             for c in split_ultralong([rec], mo.split_len)]
+            for fb in frag_batches]
+    flat_batches, flips = [], []
+    for fb in frag_batches:
+        flat, flip = [], []
+        for frag in fb:
+            for j, rec in enumerate(frag):
+                if len(frag) == 2 and ((j == 0 and (mo.pe_ori >> 1) & 1)
+                                       or (j == 1 and mo.pe_ori & 1)):
+                    flat.append(SeqRecord(
+                        rec.name, samio.revcomp(rec.seq),
+                        rec.qual[::-1] if rec.qual else None, rec.comment))
+                    flip.append(len(flat) - 1)
+                else:
+                    flat.append(rec)
+        flat_batches.append(flat)
+        flips.append(flip)
+    return frag_batches, flat_batches, flips
 
 
 # flags that only the per-record writer honours
@@ -542,23 +568,28 @@ def run_mapping(io, mo, variant: str, target: str, queries: list,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("[ERROR] --device cuda: no CUDA device is available")
     coordinator = os.environ.get("GDIET_COORDINATOR")
-    if not coordinator:
-        return _run_mapping(io, mo, variant, target, queries, device, fnw, out_path,
-                            n_threads, verbose, cli_line, max_read_len, t0)
-    from gdiet_tpu_torch.parallel.dist import init_distributed, shutdown_distributed
-
-    pid = int(os.environ.get("GDIET_PROCESS_ID", "0"))
-    world = init_distributed(coordinator, int(os.environ.get("GDIET_NUM_PROCESSES", "1")),
-                             pid)
-    _log(verbose, t0, f"joined torch.distributed (gloo) as process {pid} of {world}")
-    done = False
+    # -v 4 keeps the run's spans as intervals for the report
+    traced, PROFILE.enabled = PROFILE.enabled, PROFILE.enabled or verbose >= 4
     try:
-        rc = _run_mapping(io, mo, variant, target, queries, device, fnw, out_path,
-                          n_threads, verbose, cli_line, max_read_len, t0)
-        done = True
-        return rc
+        if not coordinator:
+            return _run_mapping(io, mo, variant, target, queries, device, fnw, out_path,
+                                n_threads, verbose, cli_line, max_read_len, t0)
+        from gdiet_tpu_torch.parallel.dist import init_distributed, shutdown_distributed
+
+        pid = int(os.environ.get("GDIET_PROCESS_ID", "0"))
+        world = init_distributed(coordinator,
+                                 int(os.environ.get("GDIET_NUM_PROCESSES", "1")), pid)
+        _log(verbose, t0, f"joined torch.distributed (gloo) as process {pid} of {world}")
+        done = False
+        try:
+            rc = _run_mapping(io, mo, variant, target, queries, device, fnw, out_path,
+                              n_threads, verbose, cli_line, max_read_len, t0)
+            done = True
+            return rc
+        finally:
+            shutdown_distributed(wait=done)
     finally:
-        shutdown_distributed(wait=done)
+        PROFILE.enabled = traced
 
 
 def _run_mapping(io, mo, variant: str, target: str, queries: list, device, fnw,
