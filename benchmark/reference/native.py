@@ -15,12 +15,14 @@ import hashlib
 import os
 import pathlib
 import subprocess
+import threading
 
 import numpy as np
 
 _SRC = pathlib.Path(__file__).parent / "gdiet_native.c"
 BUILD = pathlib.Path(__file__).resolve().parent.parent / "_build"
 _lib = None
+_lib_lock = threading.Lock()
 
 _P8, _P32, _P64 = (ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint32),
                    ctypes.POINTER(ctypes.c_int64))
@@ -29,8 +31,14 @@ _I64 = ctypes.c_int64
 
 def _load() -> ctypes.CDLL:
     global _lib
-    if _lib is not None:
-        return _lib
+    if _lib is None:
+        with _lib_lock:  # the check's threads may all make the first call
+            if _lib is None:
+                _lib = _build()
+    return _lib
+
+
+def _build() -> ctypes.CDLL:
     tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
     so = BUILD / f"ref_native_{tag}.so"
     if not so.exists():
@@ -53,7 +61,6 @@ def _load() -> ctypes.CDLL:
     lib.extd2_approx.argtypes = [
         _P8, _I64, _P8, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
         _P32, _I64, _P64]
-    _lib = lib
     return lib
 
 

@@ -29,6 +29,9 @@ the scalar oracle and of its C routines, and the index worked out again in
 NumPy) decides ``correct``: the index entry for entry, and every SAM
 record of every window read within the device envelope and of a sample of
 the others drawn from the seed, besides every read having its records.
+The reference maps the compared reads on a pool of threads that share its
+index; the log line ``reference: ...`` gives its time, its ms/kbp and the
+process's wall time so far.
 ``--control 1`` runs the control instead of the program: the reference
 with its index keys cut to 32 bits and its DP's lanes and score
 saturating at int8, put in the program's place.
@@ -60,7 +63,7 @@ import numpy as np  # noqa: E402
 BENCH = pathlib.Path(__file__).resolve().parent
 ROOT = BENCH.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "gdiet_tpu")
-REF_WORKERS = 8  # processes for the reference's index, one chromosome a job
+REF_WORKERS = 8  # the reference's workers: index processes, check threads
 
 
 def log(msg: str) -> None:
@@ -557,6 +560,28 @@ def reference_lines(ref, mo, mid_occ, name: str, seq: str) -> list:
             for r in regs if not (no2 and r.id != r.parent)]
 
 
+def check_threads() -> int:
+    return min(REF_WORKERS, os.cpu_count() or 1)
+
+
+def reference_map(ref, mo, mid_occ, reads, pick) -> list:
+    """The reference's SAM lines of each read in ``pick``, in ``pick``'s
+    order, mapped on ``check_threads()`` threads, the longest read first.
+    The threads share ``ref``, and the C routines that take most of a
+    read's time release the interpreter lock."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from benchmark import traffic
+
+    def one(i):
+        return reference_lines(ref, mo, mid_occ, traffic.name(i), traffic.seq(reads[i]))
+
+    order = sorted(pick, key=lambda i: -len(reads[i]))
+    with ThreadPoolExecutor(check_threads()) as ex:
+        done = dict(zip(order, ex.map(one, order)))
+    return [done[i] for i in pick]
+
+
 def sample_ids(mix: dict, seed: int, lens: np.ndarray, lmax: int) -> np.ndarray:
     """The window reads the check compares: every one within the device
     envelope, and ``check_reads`` of the others drawn from the seed."""
@@ -571,7 +596,6 @@ def sample_ids(mix: dict, seed: int, lens: np.ndarray, lmax: int) -> np.ndarray:
 def check(cfg, mix, seqs, reads, ids, starts, ends, sam, seed, prog_index, lmax,
           sample_only: bool = False) -> dict:
     """The numbers compared, each with its limit."""
-    from benchmark import traffic
     from benchmark.reference import options as ropt
     from benchmark.reference.refindex import RefIndex, entry_diff
 
@@ -591,10 +615,12 @@ def check(cfg, mix, seqs, reads, ids, starts, ends, sam, seed, prog_index, lmax,
     order = np.argsort(ids, kind="stable")
     sid = ids[order]
     wrong = 0
-    for i in pick:
+    t_map = time.perf_counter()
+    lines = reference_map(ref, mo, mid, reads, pick)
+    t_map = time.perf_counter() - t_map
+    for i, want in zip(pick, lines):
         lo, hi = np.searchsorted(sid, [i, i + 1])
         got = [sam[starts[j]:ends[j]].decode() for j in order[lo:hi]]
-        want = reference_lines(ref, mo, mid, traffic.name(i), traffic.seq(reads[i]))
         if got != want:
             wrong += 1
             if wrong <= 3:
@@ -604,8 +630,11 @@ def check(cfg, mix, seqs, reads, ids, starts, ends, sam, seed, prog_index, lmax,
     seen[ids[inside]] = True
     # a read of the window with no record, or a record of no read
     no_record = 0 if sample_only else int((~seen).sum()) + int((~inside).sum())
+    t_reads = time.perf_counter() - t - t_index
     log(f"reference: index {t_index} s, {len(pick)} reads ({int((lens[pick] <= lmax).sum())} "
-        f"within the device envelope) {time.perf_counter() - t - t_index} s")
+        f"within the device envelope) {t_reads} s; mapped in {t_map} s on {check_threads()} "
+        f"threads, {t_map / max(lens[pick].sum(), 1) * 1e6} ms/kbp; "
+        f"the process's wall time {time.perf_counter() - _T0} s")
     lim = cfg["limits"]
     return {"index_diff": {"value": int(index_diff), "limit": lim["index_diff"]},
             "wrong_reads": {"value": int(wrong + no_record), "limit": lim["wrong_reads"]}}
@@ -614,7 +643,6 @@ def check(cfg, mix, seqs, reads, ids, starts, ends, sam, seed, prog_index, lmax,
 def run_control(cfg, mix, seqs, tr, seed, seconds) -> dict:
     """The control in the program's place: the reference with 32-bit index
     keys and int8 DP state, judged by the same numbers as a run."""
-    from benchmark import traffic
     from benchmark.reference import native as rnative, options as ropt
     from benchmark.reference.refindex import RefIndex
 
@@ -623,12 +651,9 @@ def run_control(cfg, mix, seqs, tr, seed, seconds) -> dict:
     reads = tr.reads(window_size(mix, seconds), 5)
     lmax = lr_envelope()
     pick = sample_ids(mix, seed, np.array([len(r) for r in reads]), lmax)
-    rnative.set_saturation(127)
+    rnative.set_saturation(127)  # the C library's one setting: every thread reads it
     try:
-        mid = ctl.mid_occ(mo)
-        lines = []
-        for i in pick:
-            lines += reference_lines(ctl, mo, mid, traffic.name(i), traffic.seq(reads[i]))
+        lines = [x for ls in reference_map(ctl, mo, ctl.mid_occ(mo), reads, pick) for x in ls]
     finally:
         rnative.set_saturation(0)
     sam = ("\n".join(lines) + "\n").encode()

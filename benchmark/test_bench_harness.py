@@ -142,6 +142,14 @@ def test_check_compares_every_device_read_and_a_sample_of_the_rest():
     assert {tuple(R.sample_ids(mix, s, lens, 8192)) for s in range(8)} != {tuple(a)}
 
 
+@pytest.mark.parametrize("check_reads", [0, 3, 50])
+def test_check_compares_every_read_with_the_envelope_at_the_longest(check_reads):
+    lens = np.array([9000, 7000, 12000, 6000, 15000, 20000, 8192, 30000])
+    for lmax in (30000, 30001, 40000):
+        got = R.sample_ids({"check_reads": check_reads}, 4, lens, lmax)
+        assert got.tolist() == list(range(len(lens)))
+
+
 # ---------------------------------------------------------------------------
 # the reference
 # ---------------------------------------------------------------------------
@@ -198,6 +206,87 @@ def test_traced_run_reads_its_metrics():
     assert 0.0 <= res["metrics"]["fallback_pct.lr"]["value"] <= 100.0
     assert "front_ms.lr" in res["metrics"] and "host_tail_ms.lr" in res["metrics"]
     assert res["device"]["window_s"] > 0 and "breakdown" in res
+
+
+@pytest.mark.parametrize("saturation", [0, 127])
+def test_pooled_reference_maps_as_the_serial_one(saturation, monkeypatch):
+    """The pool's lines, read by read in ``pick``'s order, equal the lines
+    of one thread; the control's saturation holds in every worker. More
+    workers than cores, and the interpreter switching threads often."""
+    import os
+
+    from benchmark.reference import native as rnative, options as ropt
+
+    cfg, mix = tiny("pacbio_hifi.wgs")
+    mix["length"].update(min=600, max=2400, median=1200)
+    seqs = genome.make_genome(cfg, 13)
+    io, mo, _, _ = ropt.parse(cfg["args"])
+    ref = refindex.RefIndex(seqs, io.w, io.k, io.pattern)
+    mid = ref.mid_occ(mo)
+    reads = traffic.Traffic(mix, seqs, 13).reads(12, 5)
+    pick = np.array([9, 0, 4, 11, 2, 7, 5])
+    monkeypatch.setattr(R, "REF_WORKERS", 3 * (os.cpu_count() or 1))
+    switch = sys.getswitchinterval()
+    rnative.set_saturation(saturation)
+    try:
+        serial = [R.reference_lines(ref, mo, mid, traffic.name(i), traffic.seq(reads[i]))
+                  for i in pick]
+        sys.setswitchinterval(1e-6)
+        pooled = R.reference_map(ref, mo, mid, reads, pick)
+    finally:
+        sys.setswitchinterval(switch)
+        rnative.set_saturation(0)
+    assert pooled == serial
+    assert [ls[0].split("\t")[0] for ls in pooled] == [traffic.name(i) for i in pick]
+    if saturation:  # the control's lines are not the reference's
+        assert pooled != R.reference_map(ref, mo, mid, reads, pick)
+
+
+@pytest.fixture(scope="module")
+def tiny_window():
+    """check's arguments as a tiny run passes them: a real window."""
+    seen = []
+    orig = R.check
+    R.check = lambda *a, **kw: seen.append(a) or orig(*a, **kw)
+    try:
+        run_tiny(reads=8)
+    finally:
+        R.check = orig
+    return seen[0]
+
+
+def _plant(sam: bytes, ids, starts, ends, read: int) -> bytes:
+    """``read``'s first SAM line with its POS moved by one."""
+    j = int(np.flatnonzero(ids == read)[0])
+    f = sam[starts[j]:ends[j]].split(b"\t")
+    f[3] = str(int(f[3]) + 1).encode()
+    return sam[:starts[j]] + b"\t".join(f) + sam[ends[j]:]
+
+
+@pytest.mark.parametrize("planted", [False, True])
+def test_pooled_check_counts_as_serial_lines(tiny_window, planted):
+    """With the envelope above every read, the check compares every read
+    and counts, on its pool, the reads whose lines differ from the
+    reference's mapped one by one; one read's lines planted wrong count 1."""
+    from benchmark.reference import options as ropt
+
+    cfg, mix, seqs, reads, ids, starts, ends, sam, seed, prog_index, _ = tiny_window
+    lmax = max(len(r) for r in reads)
+    if planted:
+        sam = _plant(sam, ids, starts, ends, 5)
+        ids, starts, ends = R.parse_sam(sam)
+    io, mo, _, _ = ropt.parse(cfg["args"])
+    ref = refindex.RefIndex(seqs, io.w, io.k, io.pattern)
+    mid = ref.mid_occ(mo)
+    serial = 0
+    for i in range(len(reads)):
+        got = [sam[a:b].decode() for a, b in zip(starts[ids == i], ends[ids == i])]
+        serial += got != R.reference_lines(ref, mo, mid, traffic.name(i),
+                                           traffic.seq(reads[i]))
+    checks = R.check(cfg, mix, seqs, reads, ids, starts, ends, sam, seed, prog_index, lmax)
+    assert len(R.sample_ids(mix, seed, np.array([len(r) for r in reads]), lmax)) == len(reads)
+    assert checks["wrong_reads"]["value"] == serial == int(planted)
+    assert checks["index_diff"]["value"] == 0
 
 
 # ---------------------------------------------------------------------------
