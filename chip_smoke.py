@@ -2024,18 +2024,31 @@ def lr_batch_phases(mapper, batch, sync) -> tuple:
     return acc, seen["extd2_batch"]
 
 
+def windowed_calls(seen) -> list:
+    """The windowed band DP calls among captured LR DP calls."""
+    from gdiet_tpu_torch.ops import dp_band
+
+    return [(a, kw) for a, kw in seen if dp_band.band_shape(
+        a[5], kw["Lt"], kw["band_budget"], kw["unroll"])[2] is not None]
+
+
 def lr_dp_check(seen, what: str) -> dict:
     """The smallest windowed bucket of the DP calls one LR batch made
-    (``seen``, as ``lr_batch_phases`` captures them) through the band
-    kernel and its plain version at the call's shapes, then its dirs
-    through the backtrack kernel and the plain walk: exact."""
+    (``seen``, as ``lr_batch_phases`` captures them) through
+    ``lr_dp_call_check``."""
+    windowed = windowed_calls(seen)
+    check(bool(windowed), f"{what} made no windowed DP call")
+    return lr_dp_call_check(min(windowed, key=lambda c: c[0][5]), what)
+
+
+def lr_dp_call_check(call, what: str) -> dict:
+    """One captured windowed DP call through the band kernel and its plain
+    version at the call's shapes, then its dirs through the backtrack
+    kernel and the plain walk: exact."""
     from gdiet_tpu_torch.ops import dp_band, extd2
     from gdiet_tpu_torch.pipeline import device_step
 
-    windowed = [(a, kw) for a, kw in seen if dp_band.band_shape(
-        a[5], kw["Lt"], kw["band_budget"], kw["unroll"])[2] is not None]
-    check(bool(windowed), f"{what} made no windowed DP call")
-    (q, t, ln, bd, params, L), kw = min(windowed, key=lambda c: c[0][5])
+    (q, t, ln, bd, params, L), kw = call
     Lt, bb, U, tl = kw["Lt"], kw["band_budget"], kw["unroll"], kw["tlens"]
     sd = kw.get("state_dtype", "int32")
     check(sd == extd2.route_state_dtype(params, L, Lt, band_budget=bb, unroll=U),
@@ -2384,6 +2397,95 @@ def phase_ont(device, n_timed: int, genome_len: int, card: str, B: int = ONT_BAT
     say("ont", **res)
     res["dp_calls"] = seen  # for kernel_int16
     res["vote_calls"] = calls  # for prev_vote_lr
+    return res
+
+
+LR_CELL_READS, LR_CELL_GENOME_MBP = 24, 20
+
+
+def lr_cell_workload(n_reads: int, genome_mbp: float, mix: dict | None = None):
+    """Reads of the benchmark cell pacbio_hifi.wgs's model (its traffic
+    file's lengths, 5-30 kb, and errors; ``mix`` replaces the file) on a
+    genome of its generator at ``genome_mbp``. Returns (refs, reads)."""
+    import json as json_
+
+    from benchmark import genome, traffic
+    from gdiet_tpu_torch.io.fastx import SeqRecord
+
+    if mix is None:
+        mix = json_.loads((ROOT / "benchmark" / "traffic" / "hifi_wgs.json").read_text())
+    seqs = genome.make_genome({"genome_mbp": genome_mbp}, SEED)
+    tr = traffic.Traffic(mix, seqs, SEED)
+    reads = [SeqRecord(f"c{n}", s_, "I" * len(s_))
+             for n, s_ in enumerate(traffic.seq(r) for r in tr.reads(n_reads, 7))]
+    return [(name, traffic.seq(c)) for name, c in seqs], reads
+
+
+def phase_lr_cell(device, card: str, n_reads: int = LR_CELL_READS,
+                  genome_mbp: float = LR_CELL_GENOME_MBP, mix: dict | None = None) -> dict:
+    """One batch of the benchmark cell's HiFi model under its command line
+    (band 1000, ``-s 400``) through a LongReadMapper at its defaults
+    (envelope 32,768, default budgets): the kernel launch counts reset
+    just before and checked just after (``lr_counts``), every read
+    through the front with no fallback and no host DP segment, every
+    read's SAM equal to the scalar oracle's, and the first DP call of each
+    windowed bucket shape the batch made (the (16384, 17408) and (32768,
+    34048) buckets among them) through the band and backtrack kernels
+    against their plain versions (``lr_dp_call_check``), exact."""
+    import torch
+
+    from gdiet_tpu_torch import config
+    from gdiet_tpu_torch.index import build_index
+    from gdiet_tpu_torch.oracle import longread as olr
+    from gdiet_tpu_torch.pipeline.longread import LongReadMapper
+
+    cuda = torch_cuda(device)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    refs, reads = lr_cell_workload(n_reads, genome_mbp, mix)
+    io_, mo = config.options_for(
+        "map-hifi", variant="lr", pattern="10", k=19, w=19, max_seeds=0.2, bw=1000,
+        vt_dis=650, vt_nb_loc=5, vt_df1=0.0106, vt_df2=0.2, min_dp_max=400,
+        vt_cov=0.04, vt_f=0.04)
+    mo.flag |= config.MM_F_OUT_SAM | config.MM_F_CIGAR  # -a
+    mi = build_index(refs, io_, device)
+    mapper = LongReadMapper(mi, mo, n_threads=3, device=device)
+    mapper.map_batch(reads[:2])  # warm-up
+    warm = dict(mapper.stats)
+    lr_counts_reset()
+    phases, seen = lr_batch_phases(mapper, reads, sync)
+    counts = lr_counts("the cell's HiFi batch", cuda)
+    st = {k_: v - warm[k_] for k_, v in mapper.stats.items()}
+    check(st["front_reads"] == len(reads) and st["fallback_reads"] == 0
+          and st["host_dp_segments"] == 0,
+          f"the cell's HiFi batch did not map whole on the device path: {st}")
+    regs = mapper.map_batch(reads)
+    mine = [mapper.regs_to_sam_lines(r, x) for r, x in zip(reads, regs)]
+    oracle = mapper._map_parallel(lambda r: mapper.regs_to_sam_lines(r, olr.map_read_lr(
+        mapper.mi.oracle_view(), r.seq, mo, mapper.mid_occ, r.name)), reads)
+    check(mine == oracle, "the cell's HiFi batch's SAM differs from the scalar oracle's")
+    shapes, runs = set(), []
+    for call in windowed_calls(seen):
+        shape = (call[0][5], call[1]["Lt"])
+        if shape not in shapes:
+            shapes.add(shape)
+            t0 = time.perf_counter()
+            runs.append({**lr_dp_call_check(call, f"the cell's HiFi batch's {shape} call"),
+                         "check_s": time.perf_counter() - t0})
+    res = {"reads": len(reads), "bases": sum(r.l_seq for r in reads),
+           "longest_read": max(r.l_seq for r in reads), "genome_mbp": genome_mbp,
+           **counts, "stats": st, "phase_ms": phases, "dp_calls_in_batch": len(seen),
+           "dp_shapes": sorted({(a[5], kw["Lt"]) for a, kw in seen}),
+           "oracle_reads_equal": len(reads), "runs": runs,
+           "max_abs_err": max([r["max_abs_err"] for r in runs], default=0),
+           "backtrack_max_abs_err": max([r["backtrack_max_abs_err"] for r in runs],
+                                        default=0), "card": card}
+    say("lr_cell", **res)
+    check(any(r["Lmax"] >= 16384 for r in runs),
+          f"the cell's HiFi batch made no windowed DP call at 16,384 or more: {res['dp_shapes']}")
     return res
 
 
@@ -3313,6 +3415,7 @@ def main(argv=None) -> int:
     kvl = phase_kernel_vote_lr("cuda", card, lr_votes, built=built)
     mesh_lr = phase_mesh_lr("cuda", card)
     ont = phase_ont("cuda", ONT_TIMED, GENOME_LEN, card)
+    lr_cell = phase_lr_cell("cuda", card)
     if "vote_lr" in prev:
         phase_prev_vote_lr(prev["vote_lr"][0], card, {"hifi": lr_votes, "ont": ont["vote_calls"]})
     del lr_votes
@@ -3374,9 +3477,9 @@ def main(argv=None) -> int:
          **{x: k16_full[x] for x in bound_keys}, "library_ms": None},
         {"name": "extd2_band_i16", "route": "cuda", "source": src + "extd2_band_i16.cu",
          "replaces": "gdiet_tpu/ops/dp_pallas.py:183",
-         "launches": sum(r["band_i16_launches"] for r in (lr, ont, *glr.values())),
+         "launches": sum(r["band_i16_launches"] for r in (lr, ont, lr_cell, *glr.values())),
          "max_abs_err": max(int16_err(k16, "extd2_band_i16"), lr["step_dp"]["max_abs_err"],
-                            mesh_lr["step_dp"]["max_abs_err"]),
+                            mesh_lr["step_dp"]["max_abs_err"], lr_cell["max_abs_err"]),
          "ms": k16_band["int16_ms"], "plain_ms": k16_band["plain_ms"],
          **{x: k16_band[x] for x in bound_keys}, "library_ms": None},
         {"name": "extd2_fold_i16", "route": "cuda", "source": src + "extd2_fold_i16.cu",
@@ -3403,7 +3506,8 @@ def main(argv=None) -> int:
                                m["step_backtrack_max_abs_err"],
                                pe["step_backtrack_max_abs_err"],
                                lr["step_dp"]["backtrack_max_abs_err"],
-                               mesh_lr["step_dp"]["backtrack_max_abs_err"]]
+                               mesh_lr["step_dp"]["backtrack_max_abs_err"],
+                               lr_cell["backtrack_max_abs_err"]]
                             + [r["backtrack_max_abs_err"] for r in mesh["runs"]]),
          "ms": k["backtrack"]["kernel_ms"], "plain_ms": k["backtrack"]["plain_ms"],
          **{x: k["backtrack"][x] for x in bound_keys}, "library_ms": None},

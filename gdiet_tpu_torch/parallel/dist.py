@@ -39,9 +39,9 @@ import torch
 
 from gdiet_tpu_torch import u64
 from gdiet_tpu_torch.index.build import bucket_table, lookup_vals
-from gdiet_tpu_torch.pipeline.device_step import (_pattern_tables, all_gather_ref, dp_rows,
-                                                  fused_map_step, psum_ref, ref_tables,
-                                                  staged_times, step_config)
+from gdiet_tpu_torch.pipeline.device_step import (_pattern_tables, all_gather_ref, at_width,
+                                                  dp_rows, fused_map_step, psum_ref,
+                                                  ref_tables, staged_times, step_config)
 from gdiet_tpu_torch.pipeline.lr_step import lr_front
 
 __all__ = ["Mesh", "ShardedFused", "ShardedIndex", "all_gather_ref", "build_sharded_mapper",
@@ -264,16 +264,24 @@ def sharded_lr_front(mesh: Mesh, index, cfg, k: int, vt_df1: float, vt_f: float,
     device front (``lr_step.lr_front``) per data row over the sharded
     index. Returns fn(codes, lens, cov_thr, vt_dis) -> the packed meta [B,
     4 + 8K + 4 + 16] i32 on the first row's lead device, B a multiple of
-    the data-axis size; the host finish reads it unchanged."""
+    the data-axis size; the host finish reads it unchanged. ``codes`` may
+    be narrower than ``cfg.Lmax``: each width runs at ``at_width(cfg,
+    width)``, its pattern tables made once."""
     sh, cfg = _sharded(mesh, index, cfg)
-    maps, pref, _ = _pattern_tables(cfg)
-    rows = _row_tables(mesh, sh, lambda dev: {"maps": torch.from_numpy(maps).to(dev),
-                                              "pref": torch.from_numpy(pref).to(dev)})
     out_dev = mesh.lead(0)
+    by_width: dict = {}
 
     def front(codes, lens, cov_thr, vt_dis):
+        width = codes.shape[1]
+        if width not in by_width:
+            cw = at_width(cfg, width)
+            maps, pref, _ = _pattern_tables(cw)
+            by_width[width] = cw, _row_tables(
+                mesh, sh, lambda dev: {"maps": torch.from_numpy(maps).to(dev),
+                                       "pref": torch.from_numpy(pref).to(dev)})
+        cw, rows = by_width[width]
         return torch.cat([
-            lr_front(c, ln, tables, cov, dis, cfg=cfg, k=k, vt_df1=vt_df1, vt_f=vt_f,
+            lr_front(c, ln, tables, cov, dis, cfg=cw, k=k, vt_df1=vt_df1, vt_f=vt_f,
                      bw=bw).to(out_dev)
             for (c, ln, cov, dis), tables in zip(_rows(mesh, codes, lens, cov_thr, vt_dis),
                                                  rows)])

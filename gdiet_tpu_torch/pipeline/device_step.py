@@ -864,9 +864,17 @@ def fused_map_step(codes, lens, tables: dict, cfg: StepConfig,
 def step_config(index, mo, Lmax: int, S: int, S2: int, A: int) -> StepConfig:
     """StepConfig of a mapper's budgets: the seed budgets capped at the
     diet length of the longest read (device_step.py:1402-1407)."""
-    dmax = pattern.diet_length(Lmax, mo.pattern, 0)
-    return StepConfig.from_options(index, mo, index.derive_mid_occ(mo), Lmax,
-                                   min(S, dmax), min(S2, dmax), A)
+    return at_width(StepConfig.from_options(index, mo, index.derive_mid_occ(mo), Lmax,
+                                            S, S2, A), Lmax)
+
+
+def at_width(cfg: StepConfig, Lmax: int) -> StepConfig:
+    """``cfg`` for rows of ``Lmax`` bases, its seed budgets capped at their
+    diet length. A read has fewer seeds than its diet length, so a cap
+    below the budget never sends a read back that the budget keeps: the
+    same reads map alike at any width that holds them."""
+    dmax = pattern.diet_length(Lmax, cfg.pattern, 0)
+    return dataclass_replace(cfg, Lmax=Lmax, S=min(cfg.S, dmax), S2=min(cfg.S2, dmax))
 
 
 def ref_tables(index, cfg: StepConfig, dev) -> dict:

@@ -23,6 +23,31 @@ the host, the reference's own routing (``stats["host_dp_segments"]``).
 Reads outside the fixed-shape envelope map through the scalar oracle
 ``olr.map_read_lr`` (``stats["fallback_reads"]``).
 
+The envelope, ``max_read_len``, is 32,768 bp by default: the query length
+of the largest DP bucket, so a read the front maps fits a device bucket
+whole, and HiFi and ONT reads of up to ~30 kb take the device path (an
+oracle read costs the host ~30 ms/kbp). The default budgets hold such a
+read of either preset: a seed budget of 4,096 (~1,500 minimizers on a
+30 kb HiFi read's diet half at k 19, w 19; ~2,700 at ONT's k 15, w 10), a
+shift budget of 1,024 (~300 shift seeds in the first fifth of a 30 kb HiFi
+read at ``-i 0.2``, over the 256 of a smaller budget), a hit budget of
+8,192, and no vote compaction (one to 4,096 columns sends back reads in
+repeats; it saves the front no time). A read that overflows one goes back
+to the oracle, which is exact (``stats["front_fallback_reads"]``). The
+front takes a batch's reads longest first, in calls of at most
+``FRONT_BASES`` padded bases (1,024 reads at 32,768 bp), each call as wide
+as ``front_width`` of its longest read: the power of two that holds it,
+512 at least and the envelope at most. So a batch of 4 kb reads, or one
+read of the API, runs at 4,096 and not at 32,768, with its seed budgets
+capped at that width's diet length (``device_step.at_width``: no read
+that fits the width can reach the cap); a batch is never cut into more
+calls than one width would take. Each call keeps its rows in read order,
+so a batch of one call needs no reordering; several calls' metas are put
+back in read order on the device, the index uploaded without a blocking
+copy (which would wait for the whole front). A mini-batch of any size (up to 500 Mbp under ``map-hifi``) keeps each
+[B, width] int64 temporary at 256 MiB and a call at ~4 GB of device
+memory.
+
 Each phase of a batch is a span of ``utils/profile.py::PROFILE`` (under
 the caller's span, with the batch's id): ``lr.front`` (encode, H2D,
 enqueue), ``lr.front_wait`` (the meta's D2H), ``lr.host_mid`` (votes,
@@ -57,7 +82,7 @@ from gdiet_tpu_torch.ops.dp_band import LR_UNROLL, window_geometry
 from gdiet_tpu_torch.oracle import align as oal
 from gdiet_tpu_torch.oracle import longread as olr
 from gdiet_tpu_torch.parallel.dist import sharded_lr_front
-from gdiet_tpu_torch.pipeline.device_step import (_pattern_tables, pack_ops,
+from gdiet_tpu_torch.pipeline.device_step import (_pattern_tables, at_width, pack_ops,
                                                   step_config, unpack_ops)
 from gdiet_tpu_torch.pipeline.lr_step import lr_front, unpack_lr_meta
 from gdiet_tpu_torch.utils.profile import PROFILE
@@ -68,14 +93,24 @@ U32 = 0xFFFFFFFF
 # (Lq, Lt) DP buckets; segments beyond the largest take the host DP
 DP_BUCKETS = [(512, 1024), (2048, 3072), (4096, 5120), (8192, 9216),
               (16384, 17408), (32768, 34048)]
+# padded bases (reads x width) of one front call: its [B, width] int64
+# temporaries stay at 256 MiB each whatever the mini-batch holds
+FRONT_BASES = 1 << 25
+FRONT_MIN_WIDTH = 512
+
+
+def front_width(n: int, Lmax: int) -> int:
+    """The row width of a front call whose longest read has ``n`` bases:
+    the power of two that holds it, within [FRONT_MIN_WIDTH, Lmax]."""
+    return min(Lmax, max(FRONT_MIN_WIDTH, 1 << (n - 1).bit_length()))
 
 
 class LongReadMapper:
     """Batched long-read mapper on ``device`` with oracle-exact host
     fallback (longread.py:43-596)."""
 
-    def __init__(self, index, mo, max_read_len: int = 8192,
-                 seed_budget: int = 2048, shift_seed_budget: int = 256,
+    def __init__(self, index, mo, max_read_len: int = 32768,
+                 seed_budget: int = 4096, shift_seed_budget: int = 1024,
                  hit_budget: int = 8192, vote_budget: int = 0,
                  n_threads: int = 1, device=None, mesh=None):
         native.require_native()
@@ -107,12 +142,9 @@ class LongReadMapper:
         else:
             tkv, c1, c2, nb = index.device_cuckoo_kv()
             self.cfg = dataclass_replace(cfg, cuckoo_c1=c1, cuckoo_c2=c2, cuckoo_nb=nb)
-            maps, pref, _ = _pattern_tables(self.cfg)
-            dev = self.device
-            self.tables = {"cuckoo": tkv.to(dev),
-                           "positions": index.device_positions().to(dev),
-                           "maps": torch.from_numpy(maps).to(dev),
-                           "pref": torch.from_numpy(pref).to(dev)}
+            self.tables = {"cuckoo": tkv.to(self.device),
+                           "positions": index.device_positions().to(self.device)}
+            self._widths: dict = {}  # front width -> (its StepConfig, its tables)
 
     def _mark(self, name: str) -> None:
         if self.mark is not None:
@@ -224,45 +256,84 @@ class LongReadMapper:
 
     # ------------------------------------------------------------------
     def _dispatch_front(self, reads, lens_np):
-        """Encode and enqueue the device front."""
+        """Encode and enqueue the device front: the reads cut longest first
+        into calls of at most ``FRONT_BASES`` padded bases, each
+        ``front_width`` of its longest read wide, its rows in read order.
+        Returns each read's codes row and the metas [B, ...] in read
+        order."""
         mo = self.mo
-        codes, _ = native.encode_batch([r.seq for r in reads], self.Lmax)
         cov_thr = np.array([int(F32(n) * F32(mo.vt_cov)) for n in lens_np], np.int32)
         vt_dis = np.full(len(reads), mo.vt_dis, np.uint64).view(np.int64)
+        order = np.argsort(-lens_np, kind="stable")
+        calls, c0 = [], 0
+        while c0 < len(order):
+            n = max(1, FRONT_BASES // front_width(int(lens_np[order[c0]]), self.Lmax))
+            calls.append(np.sort(order[c0: c0 + n]))
+            c0 += n
+        rows: list = [None] * len(reads)
+        metas = []
+        for idx in calls:
+            width = front_width(int(lens_np[idx].max()), self.Lmax)
+            codes, _ = native.encode_batch([reads[i].seq for i in idx], width)
+            for i, row in zip(idx, codes):
+                rows[i] = row
+            metas.append(self._front_call(codes, lens_np[idx], cov_thr[idx], vt_dis[idx]))
+        meta = metas[0]
+        if len(metas) > 1:
+            back = torch.from_numpy(np.argsort(np.concatenate(calls)))
+            if meta.is_cuda:  # a blocking upload would wait for the whole front
+                back = back.pin_memory().to(meta.device, non_blocking=True)
+            meta = torch.cat(metas)[back]
+        self._mark("front")
+        return rows, meta
+
+    def _at_width(self, width: int) -> tuple:
+        """The front's StepConfig and tables for rows ``width`` wide, made
+        once a width."""
+        if width not in self._widths:
+            cfg = at_width(self.cfg, width)
+            maps, pref, _ = _pattern_tables(cfg)
+            self._widths[width] = cfg, {**self.tables,
+                                        "maps": torch.from_numpy(maps).to(self.device),
+                                        "pref": torch.from_numpy(pref).to(self.device)}
+        return self._widths[width]
+
+    def _front_call(self, codes, lens_np, cov_thr, vt_dis):
+        """One front call on host arrays (codes [B, width]): the packed meta
+        [B, ...] on the device."""
+        mo = self.mo
         if self.mesh is not None:
             # pad to a multiple of the data-axis size with zero-length rows
             # (sliced off the meta below), as longread.py:272-290 does
-            B, pad = len(reads), (-len(reads)) % self.mesh.shape["data"]
-            codes_p = np.concatenate([codes, np.full((pad, self.Lmax), 255, np.uint8)])
+            B, pad = len(codes), (-len(codes)) % self.mesh.shape["data"]
+            codes_p = np.concatenate([codes, np.full((pad, codes.shape[1]), 255, np.uint8)])
             args = [np.concatenate([lens_np, np.zeros(pad, np.int64)]),
                     np.concatenate([cov_thr, np.zeros(pad, np.int32)]),
                     np.concatenate([vt_dis, np.ones(pad, np.int64)])]
-            meta = self._mesh_front(*(torch.from_numpy(a).to(self.device)
+            return self._mesh_front(*(torch.from_numpy(a).to(self.device)
                                       for a in (codes_p, *args)))[:B]
-        else:
-            dev = self.device
-            meta = lr_front(
-                torch.from_numpy(codes).to(dev), torch.from_numpy(lens_np).to(dev),
-                self.tables, torch.from_numpy(cov_thr).to(dev),
-                torch.from_numpy(vt_dis).to(dev), self.cfg, k=self.mi.k,
-                vt_df1=float(mo.vt_df1), vt_f=float(mo.vt_f), bw=int(mo.bw))
-        self._mark("front")
-        return codes, meta
+        dev = self.device
+        cfg, tables = self._at_width(codes.shape[1])
+        return lr_front(
+            torch.from_numpy(codes).to(dev), torch.from_numpy(lens_np).to(dev),
+            tables, torch.from_numpy(cov_thr).to(dev),
+            torch.from_numpy(vt_dis).to(dev), cfg, k=self.mi.k,
+            vt_df1=float(mo.vt_df1), vt_f=float(mo.vt_f), bw=int(mo.bw))
 
     def _map_device_mid(self, lens_np, results, result_idx, front, batch):
-        codes, meta_dev = front
+        rows, meta_dev = front
         with PROFILE.span("lr.front_wait", batch=batch):
             meta = meta_dev.cpu().numpy()
         with PROFILE.span("lr.host_mid", batch=batch):
             fallback, per_read, strands, all_jobs = self._host_mid(
-                meta, codes, lens_np, results, result_idx)
+                meta, rows, lens_np, results, result_idx)
         # ---- batched segment DP (bucketed), enqueued on the device ----
         with PROFILE.span("lr.dp_dispatch", batch=batch):
             ezs, pending = self._align_jobs_dispatch(all_jobs, lens_np, fallback)
         return (results, result_idx, lens_np, fallback, per_read, strands,
                 all_jobs, ezs, pending)
 
-    def _host_mid(self, meta, codes, lens_np, results, result_idx):
+    def _host_mid(self, meta, rows, lens_np, results, result_idx):
         """The device front's meta to segment jobs on the host: the
         filtered VtSeqs, round-2 accepts, concat graph and windows."""
         mo, mi = self.mo, self.mi
@@ -324,7 +395,7 @@ class LongReadMapper:
             seqs = per_read[i]
             olr.build_concat_graph(seqs, mo)
             qlen_sum = int(lens_np[i])
-            qs_for = codes[i, :qlen_sum].astype(np.uint8)
+            qs_for = rows[i][:qlen_sum].astype(np.uint8)
             qs_rev = (qs_for[::-1] ^ 0x3).astype(np.uint8)
             jobs = olr.prepare_segments(self.mi.oracle_view(), mo, qs_for, qs_rev,
                                         qlen_sum, seqs)
