@@ -142,13 +142,19 @@ class TorchIndex:
         return self._dev["oracle"]
 
     def cal_max_occ(self, f: float) -> int:
-        """mm_idx_cal_max_occ (index.c:190-210)."""
+        """mm_idx_cal_max_occ (index.c:190-210): the count at rank
+        (1 - f) * n, found from the counts' histogram, once per ``f``
+        (every mapper asks for it; a partition of ~25 M counts takes
+        over a second)."""
         if f <= 0.0 or len(self.keys) == 0:
             return 2**31 - 1
-        counts = (self.starts[1:] - self.starts[:-1]).astype(np.uint32)
-        n = len(counts)
-        idx = min(int((1.0 - f) * n), n - 1)
-        return int(np.partition(counts, idx)[idx]) + 1
+        if ("max_occ", f) not in self._dev:
+            counts = np.diff(self.starts)
+            n = len(counts)
+            idx = min(int((1.0 - f) * n), n - 1)
+            below = np.cumsum(np.bincount(counts))  # keys with count <= c
+            self._dev["max_occ", f] = int(np.searchsorted(below, idx, side="right")) + 1
+        return self._dev["max_occ", f]
 
     def derive_mid_occ(self, mo) -> int:
         """mm_mapopt_update (options.c:64-76)."""
@@ -180,8 +186,10 @@ class TorchIndex:
         """Cuckoo probe table over (keys, packed CSR values) on the device,
         bucket-major with each bucket's (k0..k3, v0..v3) contiguous — the
         layout of gdiet_tpu's [rows, 128] table, kept flat, so that a probe
-        gathers its bucket's 8 words directly. Returns (table [2*NB*8]
-        int64 bit patterns, c1, c2, NB)."""
+        gathers its bucket's 8 words directly; its keys are mixed
+        (``index/cuckoo.py``), so a probe mixes its query too
+        (``device_step.cuckoo_lookup``). Returns (table [2*NB*8] int64 bit
+        patterns, c1, c2, NB)."""
         if "cuckoo_kv" not in self._dev:
             tk, tv, c1, c2, nb = build_cuckoo(
                 self.keys, lookup_vals(self.starts))

@@ -25,11 +25,26 @@ the unplaced keys claim the first free slot of their bucket on one side
 losers and evicted occupants retry on the other side next round. Converges
 w.h.p. in O(log n) rounds at 4-slot loads well below ~0.98; on a cycle the
 build retries with fresh hash constants.
+
+The table holds each key MIXED (``u64.fmix64``: MurmurHash3's 64-bit
+finalizer, a bijection), and a probe mixes its query the same way
+(``device_step.cuckoo_lookup``, ``probe_host``). The range map alone
+fails on keys of 32 bits or fewer (k <= 16): the top 32 bits of
+``q * c1`` then fix those of ``q * c2``, so the two sides' buckets are
+tied, and a 2k = 30-bit index of ~20 M keys or more (the map-ont preset's
+k 15 on 300 Mbp) cannot be placed at any of the four hash-constant pairs.
+Mixed keys are spread over all 64 bits first. A bijection keeps equality
+exact and the values are unchanged; the one key whose mix is ``EMPTY`` is
+over 2**63, no minimizer key (at most 2k = 56 bits). This differs from
+``gdiet_tpu``'s table, which places the raw keys.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from gdiet_tpu_torch import u64
+from gdiet_tpu_torch.utils.profile import PROFILE
 
 EMPTY = np.uint64(0xFFFFFFFFFFFFFFFF)
 SLOTS = 4  # slots per bucket (one 32-byte key row per probe side)
@@ -54,12 +69,21 @@ def build_cuckoo(keys: np.ndarray, vals: np.ndarray, max_rounds: int = 512,
                  load: float = 0.85):
     """Place (keys, vals) into a 2-side, 4-slot-bucket cuckoo table.
 
-    Returns (tbl_keys [2*NB*4] u64, tbl_vals [2*NB*4] u64, c1, c2,
-    n_buckets-per-side NB).
+    Returns (tbl_keys [2*NB*4] u64, the keys mixed by ``u64.fmix64``;
+    tbl_vals [2*NB*4] u64, c1, c2, n_buckets-per-side NB). The build is the
+    span ``index.cuckoo_build`` (its ``keys`` and the hash-constant pairs
+    it tried, ``attempts``).
     """
-    keys = np.ascontiguousarray(keys, np.uint64)
-    vals = np.ascontiguousarray(vals, np.uint64)
+    with PROFILE.span("index.cuckoo_build", keys=len(keys)) as sp:
+        return _build(u64.to_numpy(u64.fmix64(u64.from_numpy(keys))),
+                      np.ascontiguousarray(vals, np.uint64),
+                      max_rounds, load, sp)
+
+
+def _build(keys, vals, max_rounds, load, sp):
     nk = len(keys)
+    if (keys == EMPTY).any():
+        raise ValueError("a key mixes to the table's EMPTY sentinel")
     # total slots = 2 * NB * SLOTS ~= nk / load
     NB = max(1, int(np.ceil(nk / (2 * SLOTS * load))) if nk else 1)
 
@@ -71,7 +95,9 @@ def build_cuckoo(keys: np.ndarray, vals: np.ndarray, max_rounds: int = 512,
     if native.lib is not None:
         import ctypes
 
-        for c1, c2 in (_DEFAULT_C, *_RETRY_C):
+        for attempt, (c1, c2) in enumerate((_DEFAULT_C, *_RETRY_C), 1):
+            if sp is not None:
+                sp.attrs["attempts"] = attempt
             tbl_k = np.full(2 * NB * SLOTS, EMPTY, np.uint64)
             tbl_v = np.zeros(2 * NB * SLOTS, np.uint64)
             ok = native.lib.cuckoo_build_c(
@@ -88,7 +114,9 @@ def build_cuckoo(keys: np.ndarray, vals: np.ndarray, max_rounds: int = 512,
             "(all hash-constant retries exhausted)"
         )
 
-    for c1, c2 in (_DEFAULT_C, *_RETRY_C):
+    for attempt, (c1, c2) in enumerate((_DEFAULT_C, *_RETRY_C), 1):
+        if sp is not None:
+            sp.attrs["attempts"] = attempt
         tbl_k = np.full(2 * NB * SLOTS, EMPTY, np.uint64)
         tbl_v = np.zeros(2 * NB * SLOTS, np.uint64)
         k2 = tbl_k.reshape(-1, SLOTS)
@@ -129,8 +157,8 @@ def build_cuckoo(keys: np.ndarray, vals: np.ndarray, max_rounds: int = 512,
 
 
 def probe_host(tbl_k, tbl_v, c1, c2, n_buckets, q):
-    """Reference host-side probe (for tests)."""
-    q = np.asarray(q, np.uint64)
+    """Reference host-side probe (for tests) of the raw keys ``q``."""
+    q = u64.to_numpy(u64.fmix64(u64.from_numpy(q)))
     k2 = tbl_k.reshape(-1, SLOTS)
     v2 = tbl_v.reshape(-1, SLOTS)
     out = np.zeros(len(q), np.uint64)

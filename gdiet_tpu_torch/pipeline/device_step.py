@@ -99,6 +99,10 @@ class StepConfig:
     dp_frac: float = 1.0
     dp_fold: bool = False  # folded DP layout (TorchFusedMapper resolves it)
     vote_budget: int = 0  # >0: the LR front compacts the vote stream to it
+    # the front drops the query's over-repeated minimizers itself (the LR
+    # mapper); else such a read falls back (the short-read step, held
+    # bit-equal to gdiet_tpu's)
+    q_occ_drop: bool = False
     # "cuckoo": the merged-row cuckoo table of the whole index (the
     # single-device mappers); "bisect": a bucketed binary search over one
     # key-range shard (the sharded paths, parallel/dist.py sets it)
@@ -189,16 +193,18 @@ def all_gather_ref(xs: list, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def cuckoo_lookup(q, table, cfg: StepConfig):
     """mm_idx_get (index.c:84-100) as a two-sided bucketed cuckoo probe:
-    each side gathers its bucket's 8 words (k0..k3, v0..v3). Returns
-    (start, count) int64, 0 where the key is absent."""
+    each side gathers its bucket's 8 words (k0..k3, v0..v3), the keys as
+    the table holds them, mixed (``u64.fmix64``; ``index/cuckoo.py``).
+    Returns (start, count) int64, 0 where the key is absent."""
     NB = cfg.cuckoo_nb
     slots = torch.arange(8, dtype=I64, device=q.device)
     v = torch.zeros_like(q)
     found = torch.zeros(q.shape, dtype=torch.bool, device=q.device)
-    for b in (u64.range_map(q, cfg.cuckoo_c1, NB),
-              u64.range_map(q, cfg.cuckoo_c2, NB) + NB):
+    h = u64.fmix64(q)
+    for b in (u64.range_map(h, cfg.cuckoo_c1, NB),
+              u64.range_map(h, cfg.cuckoo_c2, NB) + NB):
         ent = table[b[..., None] * 8 + slots]
-        m = ent[..., :4] == q[..., None]
+        m = ent[..., :4] == h[..., None]
         # keys are unique: at most one slot of both sides matches
         v = v + torch.where(m, ent[..., 4:], 0).sum(-1)
         found = found | m.any(-1)
@@ -428,18 +434,28 @@ def collect_hits(codes, lens, tables: dict, cfg: StepConfig, upto: str | None = 
     pos = torch.arange(cfg.S, dtype=I64, device=dev)[None, :]
     seed_ok = pos < torch.clamp(mv_n, max=cfg.S)[:, None]
     if cfg.q_occ_on:
-        # mm_seed_mz_flt (seed.c:5-29) is a no-op unless the longest run of
-        # equal minimizers exceeds both bounds; only then fall back
-        xs_sorted = torch.sort(u64.ordered(torch.where(seed_ok, xs, U64_MAX)),
-                               dim=1).values
-        is_start = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
-                              xs_sorted[:, 1:] != xs_sorted[:, :-1]], dim=1)
-        run_start = _cummax(torch.where(is_start, pos, -1))
-        dup_ok = torch.where(xs_sorted != ORD_MAX, pos - run_start + 1, 0)
-        maxdup = dup_ok.max(dim=1).values
-        noop = (maxdup <= cfg.mid_occ) | (
-            maxdup.to(torch.float64) <= mv_n.to(torch.float64) * cfg.q_occ_frac)
-        fallback = fallback | ((mv_n > cfg.mid_occ) & ~noop)
+        # mm_seed_mz_flt (seed.c:5-29): a minimizer whose occurrences in the
+        # query exceed both mid_occ and n * q_occ_frac is dropped. With
+        # q_occ_drop the front drops it and the others move up in their
+        # order; else the read falls back, as gdiet_tpu's step does
+        xs_sorted, order = torch.sort(u64.ordered(torch.where(seed_ok, xs, U64_MAX)),
+                                      dim=1, stable=True)
+        new_run = xs_sorted[:, 1:] != xs_sorted[:, :-1]
+        one = torch.ones((B, 1), dtype=torch.bool, device=dev)
+        run_start = _cummax(torch.where(torch.cat([one, new_run], dim=1), pos, -1))
+        run_end = torch.cummin(torch.where(torch.cat([new_run, one], dim=1), pos, cfg.S)
+                               .flip(1), dim=1).values.flip(1)
+        run = run_end - run_start + 1
+        over = ((xs_sorted != ORD_MAX) & (run > cfg.mid_occ)
+                & (run.to(torch.float64) > mv_n.to(torch.float64)[:, None] * cfg.q_occ_frac))
+        if cfg.q_occ_drop:
+            drop = torch.zeros_like(seed_ok).scatter(1, order, over)
+            keep_first = torch.argsort(drop.to(I32), dim=1, stable=True)
+            xs, ys = torch.gather(xs, 1, keep_first), torch.gather(ys, 1, keep_first)
+            mv_n = mv_n - drop.sum(1)
+            seed_ok = pos < torch.clamp(mv_n, max=cfg.S)[:, None]
+        else:
+            fallback = fallback | over.any(1)
 
     # ---- phase 3: seed lookup + hit expansion ----
     looked = probe(torch.where(seed_ok, srl(xs, 8), U64_MAX))

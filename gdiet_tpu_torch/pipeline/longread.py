@@ -57,7 +57,10 @@ segment, ``lr.dp_fetch`` with ``lr.dp_wait`` per chunk's D2H,
 pool (its ``len`` and ``reason``: ``len`` over the envelope, ``front``
 sent back by the device front, ``host_only`` under ``-T`` or debug).
 Counters: ``front_reads`` (reads sent to the front),
-``front_fallback_reads`` (those its meta sent back) and ``oracle_bases``.
+``front_fallback_reads`` (those its meta sent back), ``oracle_bases``,
+``dp_segments`` (segments of device-path reads that need a DP: not an
+exact match) and ``host_dp_segments`` (those of them beyond the largest
+bucket, on the host's ``oal.extd2``).
 
 ``LongReadMapper(mesh=...)`` runs the front over a (data, ref) mesh
 (``parallel/dist.py::sharded_lr_front``: reads split across the data rows,
@@ -125,16 +128,20 @@ class LongReadMapper:
         # fallbacks release the GIL inside numpy and C
         self.n_threads = max(1, n_threads)
         self._pool = None
-        self.stats = {"fallback_reads": 0, "n_reads": 0, "host_dp_segments": 0,
-                      "front_reads": 0, "front_fallback_reads": 0, "oracle_bases": 0}
+        self.stats = {"fallback_reads": 0, "n_reads": 0, "dp_segments": 0,
+                      "host_dp_segments": 0, "front_reads": 0,
+                      "front_fallback_reads": 0, "oracle_bases": 0}
         # mark(name), when set, is called at each phase boundary of a batch
         # (front, host_mid, dp, backtrack, d2h, host_finish)
         self.mark = None
 
         cfg = step_config(index, mo, max_read_len, seed_budget, shift_seed_budget,
                           hit_budget)
-        # LR voting keeps vt_nb_loc candidates (map.c:1310)
-        cfg = dataclass_replace(cfg, K=mo.vt_nb_loc, vote_budget=vote_budget)
+        # LR voting keeps vt_nb_loc candidates (map.c:1310); the front
+        # applies mm_seed_mz_flt itself, so a read with a repeated
+        # minimizer stays on the device
+        cfg = dataclass_replace(cfg, K=mo.vt_nb_loc, vote_budget=vote_budget,
+                                q_occ_drop=True)
         if mesh is not None:
             self.cfg = cfg
             self._mesh_front = sharded_lr_front(
@@ -455,6 +462,7 @@ class LongReadMapper:
             if exact:
                 ezs[n] = (int(lens_np[i]) * mo.a, [(int(qlen), oal.CIGAR_MATCH)])
                 continue
+            self.stats["dp_segments"] += 1
             bi = next((b for b, (lq, lt) in enumerate(DP_BUCKETS)
                        if len(qwin) <= lq and len(twin) <= lt), None)
             if bi is None:  # beyond the largest bucket (longread.py:465-470)

@@ -10,8 +10,9 @@ has no shift, compare, min or sort, so the port keeps the same 64 bits in
 - unsigned order: flip the sign bit (``ordered``) and compare, take minima
   or sort as signed — ``U64_MAX`` then maps to ``INT64_MAX`` and sorts last;
 - the cuckoo range map ``((q*c) >> 32) * NB >> 32`` (``index/cuckoo.py``),
-  whose constants have bit 63 set: multiplication wraps modulo 2**64 in both
-  representations, and every shift is logical.
+  whose constants have bit 63 set, and the key mix before it (``fmix64``):
+  multiplication wraps modulo 2**64 in both representations, and every
+  shift is logical.
 
 Addition, subtraction, multiplication, ``&``, ``|``, ``^``, ``~``, ``<<`` and
 equality give the same bits as uint64.
@@ -27,6 +28,8 @@ U64_MAX = -1  # 0xFFFF_FFFF_FFFF_FFFF
 ORD_MAX = (1 << 63) - 1  # ordered(U64_MAX)
 ORD_MIN = SIGN  # ordered(0)
 U32 = 0xFFFFFFFF
+# MurmurHash3's 64-bit finalizer: odd multipliers, so the mix is a bijection
+FMIX_C = (0xFF51AFD7ED558CCD, 0xC4CEB9FE1A85EC53)
 
 
 def as_i64(c: int) -> int:
@@ -71,3 +74,12 @@ def range_map(q: torch.Tensor, c: int, n: int) -> torch.Tensor:
     """Cuckoo bucket id ``((q*c) >> 32) * n >> 32`` (index/cuckoo.py:46-50)."""
     t = srl(q * as_i64(c), 32)
     return srl(t * n, 32)
+
+
+def fmix64(x: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 64-bit finalizer, a bijection of the 64 bits: the
+    cuckoo table's keys pass through it before they are placed
+    (``index/cuckoo.py``) and before they are probed."""
+    for c in FMIX_C:
+        x = (x ^ srl(x, 33)) * as_i64(c)
+    return x ^ srl(x, 33)

@@ -98,3 +98,25 @@ def test_cuckoo_probe_answers_every_key(data_dir):
     miss = torch.tensor([u64.U64_MAX, (1 << 42) + 5], dtype=torch.int64)
     s, c = cuckoo_lookup(miss, tbl, cfg)
     assert s.tolist() == [0, 0] and c.tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("f", [2e-4, 0.01, 0.5, 1.0])
+@pytest.mark.parametrize("dist", ["singletons", "geometric", "heavy_tail"])
+def test_cal_max_occ_is_the_partition_rank(dist, f):
+    """The histogram rank equals ``np.partition``'s (mm_idx_cal_max_occ),
+    and a second call returns the value kept for that ``f``."""
+    rng = np.random.default_rng(len(dist))
+    n = 20_000
+    counts = {"singletons": np.ones(n, np.int64),
+              "geometric": rng.geometric(0.4, n),
+              "heavy_tail": (rng.pareto(1.1, n) * 3 + 1).astype(np.int64)}[dist]
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    mi = TorchIndex(k=15, w=10, pattern="10", names=["r"], lengths=np.ones(1, np.int64),
+                    seq_offsets=np.zeros(1, np.int64), codes=np.zeros(1, np.uint8),
+                    keys=np.arange(n, dtype=np.uint64), starts=starts,
+                    positions=np.zeros(int(starts[-1]), np.uint64))
+    idx = min(int((1.0 - f) * n), n - 1)
+    want = int(np.partition(counts.astype(np.uint32), idx)[idx]) + 1
+    assert mi.cal_max_occ(f) == want
+    mi.starts = starts[:1]  # the kept value no longer reads the counts
+    assert mi.cal_max_occ(f) == want

@@ -43,7 +43,8 @@ HIFI_ARGS = ["-a", "-t", "3", "-x", "map-hifi", "-Z", "10", "-W", "2", "-k", "19
 SMALL_BUCKETS = [(512, 1024)]
 
 # span -> its parent, as the long-read route of run_generic records them
-PARENT = {"run.mapper_init": "run", "run.read": "run", "run.write": "run",
+PARENT = {"run.mapper_init": "run", "index.cuckoo_build": "run.mapper_init",
+          "run.read": "run", "run.write": "run",
           "lr.front": "run", "lr.front_wait": "run", "lr.host_mid": "run",
           "lr.dp_dispatch": "run", "lr.host_dp": "lr.dp_dispatch",
           "lr.dp_fetch": "run", "lr.dp_wait": "lr.dp_fetch", "lr.finish": "run",
@@ -267,6 +268,7 @@ def _synthetic() -> Profiler:
     oracle = add("lr.oracle", 300, 900, run)
     for a, b, n in ((300, 700, 4000), (310, 800, 6000), (320, 900, 2000)):
         add("lr.oracle_read", a, b, oracle, len=n, reason="len")
+    rec.ns["index.cuckoo_build"] = 1_500 * MS  # the total of a set-up span
     return rec
 
 
@@ -274,11 +276,14 @@ def _synthetic() -> Profiler:
 EVENTS = [("kernel", T / 1e3 + 280_000, T / 1e3 + 290_000),
           ("kernel", T / 1e3 + 120_000, T / 1e3 + 125_000)]
 CTX = {"window_s": 1.1, "events": EVENTS,
-       "stats": {"oracle_bases": 12_000, "front_reads": 4, "front_fallback_reads": 1}}
+       "stats": {"oracle_bases": 12_000, "front_reads": 4, "front_fallback_reads": 1,
+                 "dp_segments": 40, "host_dp_segments": 3}}
+COUNTER_READERS = {"front_fallback_pct.lr", "host_dp_pct.lr"}
 EXPECTED = {"parse_ms.lr": 10.0, "write_ms.lr": 50.0, "host_mid_ms.lr": 60.0,
             "oracle_ms.lr": 600.0, "device_wait_ms.lr": 30.0,
             "oracle_ms_per_kbp.lr": (400 + 490 + 580) / 12.0,
-            "front_fallback_pct.lr": 25.0,
+            "front_fallback_pct.lr": 25.0, "host_dp_pct.lr": 7.5,
+            "cuckoo_build_s": 1.5,
             # covered: 270 + 650 ms of spans, 10 ms of device in a gap
             "idle_unspanned_pct.lr": 100.0 * (1.1 - 0.93) / 1.1}
 
@@ -298,7 +303,7 @@ def test_readers_return_none_without_a_run_root(monkeypatch):
 
     monkeypatch.setattr(tprof, "PROFILE", Profiler())
     for name in EXPECTED:
-        ctx = CTX if name != "front_fallback_pct.lr" else {**CTX, "stats": {}}
+        ctx = CTX if name not in COUNTER_READERS else {**CTX, "stats": {}}
         assert R.load_metric(name).read(ctx) is None, name
     monkeypatch.setattr(tprof, "PROFILE", object())
     assert R.load_metric("oracle_ms.lr").read(CTX) is None
