@@ -13,8 +13,10 @@ device: ``ops/extd2.py::extd2_batch`` with the band budget and an unroll of
 chunk. The DP's lane state is ``extd2.route_state_dtype``'s: int16 for
 every windowed bucket and the full-width (512, 1024) one where
 ``safe_state_dtype`` allows it (every preset), the outputs bit-equal to
-int32's. The host run-length-encodes the ops (``native.rle_ops``) and
-finishes each read (``finalize_read``).
+int32's. Each chunk's CIGARs stay packed through the host's run-length
+encoding and one native fix-and-rescore pass (``pipeline/lr_finish.py``),
+and each read is finished from those rows on the calling thread
+(``lr_finish.finish_read``, ``olr.finalize_read``'s steps).
 
 The device is explicit: on the card every bucket runs the kernels, on the
 CPU their plain versions (``gdiet_tpu`` runs the scalar ``oal.extd2`` off
@@ -59,8 +61,11 @@ sent back by the device front, ``host_only`` under ``-T`` or debug).
 Counters: ``front_reads`` (reads sent to the front),
 ``front_fallback_reads`` (those its meta sent back), ``oracle_bases``,
 ``dp_segments`` (segments of device-path reads that need a DP: not an
-exact match) and ``host_dp_segments`` (those of them beyond the largest
-bucket, on the host's ``oal.extd2``).
+exact match), ``host_dp_segments`` (those of them beyond the largest
+bucket, on the host's ``oal.extd2``), ``finish_segments`` (segments that
+reach a ``Reg``) and ``finish_py_segments`` (those of them finished by the
+per-record ``oal.update_extra``: exact matches, host-DP segments, rows of
+a chunk whose runs overflow).
 
 ``LongReadMapper(mesh=...)`` runs the front over a (data, ref) mesh
 (``parallel/dist.py::sharded_lr_front``: reads split across the data rows,
@@ -80,13 +85,12 @@ import torch
 from gdiet_tpu_torch import config, debug, native
 from gdiet_tpu_torch.io import sam as samio
 from gdiet_tpu_torch.ops import extd2
-from gdiet_tpu_torch.ops.dp import cigars_from_ops
 from gdiet_tpu_torch.ops.dp_band import LR_UNROLL, window_geometry
 from gdiet_tpu_torch.oracle import align as oal
 from gdiet_tpu_torch.oracle import longread as olr
 from gdiet_tpu_torch.parallel.dist import sharded_lr_front
-from gdiet_tpu_torch.pipeline.device_step import (_pattern_tables, at_width, pack_ops,
-                                                  step_config, unpack_ops)
+from gdiet_tpu_torch.pipeline import lr_finish
+from gdiet_tpu_torch.pipeline.device_step import _pattern_tables, at_width, pack_ops, step_config
 from gdiet_tpu_torch.pipeline.lr_step import lr_front, unpack_lr_meta
 from gdiet_tpu_torch.utils.profile import PROFILE
 
@@ -124,13 +128,15 @@ class LongReadMapper:
                        torch.device(device if device is not None else index.device))
         self.mid_occ = index.derive_mid_occ(mo)
         self.Lmax = max_read_len
-        # -t analog (kt_for): prepare_segments / finalize_read / oracle
-        # fallbacks release the GIL inside numpy and C
+        # -t analog (kt_for): prepare_segments and the oracle fallbacks
+        # release the GIL inside numpy and C; the finish, bound by the
+        # GIL, runs on the calling thread
         self.n_threads = max(1, n_threads)
         self._pool = None
         self.stats = {"fallback_reads": 0, "n_reads": 0, "dp_segments": 0,
                       "host_dp_segments": 0, "front_reads": 0,
-                      "front_fallback_reads": 0, "oracle_bases": 0}
+                      "front_fallback_reads": 0, "oracle_bases": 0,
+                      "finish_segments": 0, "finish_py_segments": 0}
         # mark(name), when set, is called at each phase boundary of a batch
         # (front, host_mid, dp, backtrack, d2h, host_finish)
         self.mark = None
@@ -426,17 +432,15 @@ class LongReadMapper:
                 jobs_i, ez_i = by_read.setdefault(i, ([], []))
                 jobs_i.append(job)
                 ez_i.append(ez)
-            fin_idx = [i for i in range(len(lens_np))
-                       if not (fallback[i] or not per_read[i])]
-
-            def _fin(i):
+            mi = self.mi.oracle_view()
+            for i in range(len(lens_np)):
+                if fallback[i] or not per_read[i]:
+                    continue
                 jobs, ez_list = by_read.get(i, ([], []))
                 qs_for, qs_rev = strands[i]
-                return olr.finalize_read(self.mi.oracle_view(), mo, qs_for, qs_rev,
-                                         int(lens_np[i]), per_read[i], jobs, ez_list)
-
-            for i, regs in zip(fin_idx, self._map_parallel(_fin, fin_idx)):
-                results[result_idx[i]] = regs
+                results[result_idx[i]] = lr_finish.finish_read(
+                    mi, mo, qs_for, qs_rev, int(lens_np[i]), per_read[i], jobs, ez_list,
+                    self.stats)
         self._mark("host_finish")
         return fallback
 
@@ -446,21 +450,23 @@ class LongReadMapper:
         with PROFILE.span("lr.host_dp"):
             ez = oal.extd2(qwin, twin, mo.a, mo.b, mo.q, mo.e, mo.q2, mo.e2,
                            mo.bw, mo.zdrop, mo.end_bonus, oal.KSW_EZ_APPROX_MAX)
-        return ez.score, list(ez.cigar)
+        return ez.score, list(ez.cigar), None
 
     def _align_jobs_dispatch(self, all_jobs, lens_np, fallback):
         """Per-segment DP (longread.py:439-528): exact-match short-circuit,
         then length-bucketed chunks on the device; segments beyond the
-        largest bucket take the host DP."""
+        largest bucket take the host DP. A segment's result is (score,
+        cigar, row), ``row`` None where the finish fixes the CIGAR per
+        record (``lr_finish.chunk_results``)."""
         mo = self.mo
         ezs: list = [None] * len(all_jobs)
         buckets: dict = {bi: [] for bi in range(len(DP_BUCKETS))}
         for n, (i, (_s, qwin, twin, exact, qlen)) in enumerate(all_jobs):
             if fallback[i]:
-                ezs[n] = (oal.NEG_INF, [])
+                ezs[n] = (oal.NEG_INF, [], None)
                 continue
             if exact:
-                ezs[n] = (int(lens_np[i]) * mo.a, [(int(qlen), oal.CIGAR_MATCH)])
+                ezs[n] = (int(lens_np[i]) * mo.a, [(int(qlen), oal.CIGAR_MATCH)], None)
                 continue
             self.stats["dp_segments"] += 1
             bi = next((b for b, (lq, lt) in enumerate(DP_BUCKETS)
@@ -502,7 +508,9 @@ class LongReadMapper:
                     qlens[j] = len(qwin)
                     tlens[j] = len(twin)
                 band = np.full(N, mo.bw, np.int32)
-                pending.append((sub, qlens, self._run_bucket(Q, T, qlens, tlens, band, lq, lt)))
+                # Q and T stay for the finish's rescoring of the chunk
+                pending.append((sub, qlens, Q, T,
+                                self._run_bucket(Q, T, qlens, tlens, band, lq, lt)))
         return ezs, pending
 
     def _run_bucket(self, Q, T, qlens, tlens, band, lq: int, lt: int):
@@ -534,22 +542,16 @@ class LongReadMapper:
         return packed
 
     def _align_jobs_fetch(self, ezs, pending):
-        """Fetch the DP chunks and run-length-encode their ops on the host,
-        in dispatch order."""
-        for sub, qlens, dev in pending:
+        """Fetch the DP chunks and take each to its fixed CIGARs and
+        rescoring rows on the host (``lr_finish.chunk_results``), in
+        dispatch order."""
+        for sub, qlens, Q, T, dev in pending:
             with PROFILE.span("lr.dp_wait"):  # segment-DP D2H
                 packed = dev.cpu().numpy()
             self._mark("d2h")
-            score = packed[:, :4].copy().view(np.int32)[:, 0]
-            fin_i = packed[:, 4:8].copy().view(np.int32)[:, 0]
-            fin_j = packed[:, 8:12].copy().view(np.int32)[:, 0]
-            op_rows = unpack_ops(packed[:, 12:])
-            cigs = native.rle_ops(op_rows, fin_i, fin_j, qlens,
-                                  max_runs=max(1024, op_rows.shape[1] // 4))
-            if cigs is None:
-                cigs = cigars_from_ops(op_rows, fin_i, fin_j, qlens)
-            for j, n in enumerate(sub):
-                sc = int(score[j])
-                ezs[n] = (sc, cigs[j] if sc != oal.NEG_INF else [])
+            n = len(sub)
+            for m, res in zip(sub, lr_finish.chunk_results(packed[:n], qlens[:n], Q, T,
+                                                           self.mo)):
+                ezs[m] = res
             self._mark("host_finish")
         return ezs

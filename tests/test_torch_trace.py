@@ -6,6 +6,9 @@ long-read path, on the CPU.
   kept and nests inside its parent, and the SAM is unchanged.
 - Every oracle read has one ``lr.oracle_read`` span with its reason, and
   the counters add up to the batch.
+- At the mapper's own DP buckets every segment of the fixture is finished
+  from its packed row (``finish_py_segments`` 0), and the records are the
+  golden ones.
 - A span and a profiler event share one clock; the recorder emits no
   profiler range.
 - The benchmark's span and counter readers (``benchmark/metrics``) on a
@@ -13,7 +16,8 @@ long-read path, on the CPU.
 
 The HiFi runs use the first 8 reads of ``reads_lr.fq`` with the LR DP
 buckets cut to (512, 1024), so longer segments take the exact host DP
-(``lr.host_dp``) and the plain DP stays short on the CPU. The ``cuda`` test
+(``lr.host_dp``) and the plain DP stays short on the CPU; the finish's
+counters are read at the full buckets. The ``cuda`` test
 runs on the card with ``python -m pytest --noconftest -m cuda
 tests/test_torch_trace.py``.
 """
@@ -31,6 +35,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from gdiet_tpu_torch import cli, runtime
 from gdiet_tpu_torch.io.fastx import read_fastx
+from gdiet_tpu_torch.oracle import align as oal
 from gdiet_tpu_torch.pipeline import longread
 from gdiet_tpu_torch.testing import sam_body, torch_threads
 from gdiet_tpu_torch.utils import profile as tprof
@@ -207,6 +212,29 @@ def test_each_oracle_read_is_a_span_with_its_reason(hifi, monkeypatch, reason):
     assert all(r is not None for r in results)
 
 
+def test_full_buckets_finish_every_segment_packed(hifi, monkeypatch):
+    """At the mapper's own DP buckets no segment of the fixture takes the
+    per-record finish, every segment that reaches a Reg is counted, and the
+    records are the golden ones."""
+    reached = []
+    fetch = longread.LongReadMapper._align_jobs_fetch
+
+    def counted(m, ezs, pending):
+        out = fetch(m, ezs, pending)
+        reached.append(sum(score != oal.NEG_INF for score, _, _ in out))
+        return out
+
+    monkeypatch.setattr(longread.LongReadMapper, "_align_jobs_fetch", counted)
+    m = longread.LongReadMapper(hifi["mi"], hifi["mo"], n_threads=3, device="cpu")
+    results = m.map_batch(hifi["reads"])
+    lines = [line for rec, regs in zip(hifi["reads"], results)
+             for line in m.regs_to_sam_lines(rec, regs)]
+    assert lines == hifi["golden"]
+    st = m.stats
+    assert st["host_dp_segments"] == st["finish_py_segments"] == 0
+    assert st["finish_segments"] == sum(reached) == st["dp_segments"] > 0
+
+
 def test_span_and_profiler_event_share_one_clock():
     """A span around a CPU op under torch.profiler contains the op's
     profiler interval, and the recorder adds no range of its own."""
@@ -277,12 +305,14 @@ EVENTS = [("kernel", T / 1e3 + 280_000, T / 1e3 + 290_000),
           ("kernel", T / 1e3 + 120_000, T / 1e3 + 125_000)]
 CTX = {"window_s": 1.1, "events": EVENTS,
        "stats": {"oracle_bases": 12_000, "front_reads": 4, "front_fallback_reads": 1,
-                 "dp_segments": 40, "host_dp_segments": 3}}
-COUNTER_READERS = {"front_fallback_pct.lr", "host_dp_pct.lr"}
+                 "dp_segments": 40, "host_dp_segments": 3, "finish_segments": 37,
+                 "finish_py_segments": 3}}
+COUNTER_READERS = {"front_fallback_pct.lr", "host_dp_pct.lr", "finish_py_pct.lr"}
 EXPECTED = {"parse_ms.lr": 10.0, "write_ms.lr": 50.0, "host_mid_ms.lr": 60.0,
             "oracle_ms.lr": 600.0, "device_wait_ms.lr": 30.0,
             "oracle_ms_per_kbp.lr": (400 + 490 + 580) / 12.0,
             "front_fallback_pct.lr": 25.0, "host_dp_pct.lr": 7.5,
+            "finish_py_pct.lr": 100.0 * 3 / 37,
             "cuckoo_build_s": 1.5,
             # covered: 270 + 650 ms of spans, 10 ms of device in a gap
             "idle_unspanned_pct.lr": 100.0 * (1.1 - 0.93) / 1.1}
