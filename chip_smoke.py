@@ -93,24 +93,23 @@ JAX. Phases, each printing one line:
    run; one generic batch's per-phase device times, host finish (regs),
    SAM writing and peak device memory per read.
 9. golden_pe: the paired-end fixture (``ref_pe.fa``, ``reads_pe_1.fq`` +
-   ``reads_pe_2.fq``) through the port's PE CLI on ``cuda`` with
-   ``GDIET_DP_FOLD=1``: records equal the same run on ``cpu`` (the plain
-   versions) and on ``cuda`` with the fold off, byte for byte, and the R1
+   ``reads_pe_2.fq``) through the port's PE CLI on ``cuda``: records equal
+   the same run on ``cpu`` (the plain versions), byte for byte, and the R1
    records match ``golden_pe_r1.sam`` as ``tests/test_pe_parity.py`` checks
-   them. Both cuda runs launch the backtrack kernel and never the plain
-   walk.
-10. pe: the PE path at full width with ``GDIET_DP_FOLD=1``: FR pairs of 150
-   bp ends (fragments of 250-500 bp, 0.5% substitutions) from the bench
-   genome, 1 warm-up + 3 timed batches of 4,096 pairs at the JAX runtime's
-   PE budgets. Launch counts are reset just before and read just after.
-   Checks: >= 90% of pairs with both ends mapped, >= 99% of mapped primary
-   records where the reference places them, the first 64 pairs equal to
-   the oracle's PE finish, the first batch's SAM identical with the fold
-   off, fold and backtrack launches > 0 and no plain-fold, unfolded or
-   plain-backtrack call (none of the plain walk with the fold off either).
-   The DP inputs of one batch, as the step hands them to the fold kernel,
-   go through the kernel and the plain fold version once more, and the
-   folded dirs through the backtrack kernel and the plain walk: exact.
+   them. The cuda run launches the backtrack kernel, never the plain walk
+   and no fold kernel.
+10. pe: the PE path at full width: FR pairs of 150 bp ends (fragments of
+   250-500 bp, 0.5% substitutions) from the bench genome, 1 warm-up + 3
+   timed batches of 4,096 pairs at the JAX runtime's PE budgets. Launch
+   counts are reset just before and read just after. Checks: >= 90% of
+   pairs with both ends mapped, >= 99% of mapped primary records where the
+   reference places them, the first 64 pairs equal to the oracle's PE
+   finish, full-width DP and backtrack launches > 0, no fold launch and no
+   plain DP or plain-backtrack call. The DP inputs of one batch, as the
+   step hands them to the DP kernel, go through the kernel and the plain
+   version once more, and the dirs through the backtrack kernel and the
+   plain walk: exact; the same rows folded through the fold kernel, its
+   plain version and the backtrack: exact, the scores the full width's.
 11. kernel_band: the int32 banded lane window kernel ``extd2_band`` against its
    plain version at the (2048, 3072) long-read bucket, 64 seeded windows
    (equal, mutated, indels, N codes, dead rows), at band 500 (WB 768) and
@@ -140,7 +139,7 @@ JAX. Phases, each printing one line:
    captured DP inputs (the smallest windowed bucket, int16 lane state)
    through the kernels and the plain versions once more, exact. The LR vote kernel
    launched (twice a batch) and neither the plain LR vote loops nor
-   ``lr_step._stream_columns`` called.
+   ``vote._stream_columns`` called.
 14. kernel_vote_lr: ``csrc/vote_lr.cu``'s round 1 (``vote_lr``) and both
    round-2 windows (``vote2_pair``; one warp per read half, 32 columns a
    step) against the plain LR loops on the vote calls captured from one
@@ -155,7 +154,7 @@ JAX. Phases, each printing one line:
    insertions, 1% deletions) and ``ont_stats`` options and budgets, 1
    warm-up + 2 timed batches of 16. Checks: >= 90% of reads mapped; the
    int16 DP, backtrack and vote kernels launched, no int32 DP and no plain
-   version called in the timed window; one batch's captured vote stream (M = 8,194) through
+   version called in the timed window; one batch's captured vote stream (M = 16,386) through
    ``vote_lr.cu`` and the plain loops, exact, reported as in phase 14.
    Reads/s, fallbacks and host DP segments (``LongReadMapper.stats``), one
    batch's per-phase times.
@@ -243,7 +242,7 @@ JAX. Phases, each printing one line:
    1%.
 24. prev_fold_i16 (``--prev DIR`` with an earlier ``extd2_fold_i16.cu``,
    ``dp_pair.cuh`` beside it): the earlier source, the checkout's and
-   ``extd2_fold.cu`` on the PE step's captured fold call and the SE fold
+   ``extd2_fold.cu`` on the PE step's captured DP rows folded and the SE fold
    call, score and dirs exact, in turns (int32, earlier, current, current,
    earlier, int32); the checkout's not slower than the earlier beyond 1%.
 
@@ -413,13 +412,12 @@ def dp_pairs(N: int, L: int, qlen: int, seed: int = 1):
 PARAMS = (2, 8, 12, 2, 24, 1)  # the sr preset's scoring
 
 
-def sr_dp_kernel(L: int, fold: bool) -> str:
+def sr_dp_kernel(L: int) -> str:
     """The DP kernel the short-read step's route launches at Lmax ``L``
     (extd2.route_state_dtype, at the sr preset's scoring)."""
     from gdiet_tpu_torch.ops.extd2 import route_state_dtype
 
-    i16 = route_state_dtype(PARAMS, L, fold=fold) == "int16"
-    return ("extd2_fold" if fold else "extd2") + ("_i16" if i16 else "")
+    return "extd2_i16" if route_state_dtype(PARAMS, L) == "int16" else "extd2"
 
 
 # bounds of the card (NVIDIA's H100 SXM data sheet): HBM bandwidth, and
@@ -525,7 +523,7 @@ def backtrack_vs_plain(dirs, ln, bd, L: int, cuda: bool, fold: bool = False) -> 
     short-read step's call) against the plain walk, timed as
     kernel_vs_plain times; exact. Returns (kernel outputs, report)."""
     from gdiet_tpu_torch.ops import extd2
-    from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
+    from gdiet_tpu_torch.ops.backtrack import backtrack_antidiag
 
     out, plain, times = kernel_vs_plain(
         lambda: extd2.backtrack_band(dirs, ln, ln, bd, L, L, fold=fold),
@@ -601,7 +599,7 @@ def phase_kernel_fold(device, N: int, L: int, qlen: int, card: str,
     import torch
 
     from gdiet_tpu_torch.ops import dp_fold, extd2
-    from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
+    from gdiet_tpu_torch.ops.backtrack import backtrack_antidiag
 
     cuda = torch.device(device).type == "cuda"
     Q, T, lens, band = dp_pairs(N, L, qlen)
@@ -801,8 +799,8 @@ def vote_vs_plain(call, K: int, cuda: bool, what: str, prev=None) -> dict:
     turns with this one (earlier, current, current, earlier), outputs
     equal."""
     from gdiet_tpu_torch.ops import vote
-    from gdiet_tpu_torch.pipeline.device_step import vote_scan as plain
 
+    plain = vote._vote_scan
     args, _ = call
     halves, per_row = args[:6], args[6:9]
     fok, rok = halves[2], halves[5]
@@ -998,13 +996,12 @@ def _map_sam(mapper, reads) -> list:
 def sr_counts_reset() -> None:
     """Zero the launch counts of the SR/PE path's kernels (DP, vote,
     backtrack) and the call counts of their plain versions."""
-    from gdiet_tpu_torch.ops import dp, dp_fold, extd2, vote
-    from gdiet_tpu_torch.pipeline import device_step
+    from gdiet_tpu_torch.ops import backtrack, dp, dp_fold, extd2, vote
 
     for c in (extd2.launches, extd2.fold_launches, extd2.backtrack_launches,
               extd2.i16_launches, extd2.fold_i16_launches,
-              vote.launches, dp.calls, dp_fold.calls, device_step.backtrack_calls,
-              device_step.vote_calls):
+              vote.launches, dp.calls, dp_fold.calls, backtrack.backtrack_calls,
+              vote.vote_calls):
         c.reset()
 
 
@@ -1012,9 +1009,8 @@ def sr_counts(what: str, cuda: bool, dp_kernel: str | None = None) -> dict:
     """The SR/PE kernels' launches and their plain versions' calls since
     the last reset; on the card every kernel must have run and no plain
     version: the DP only as the step's routes take it (sr_dp_kernel at any
-    width, folded or not), with ``dp_kernel`` that one alone."""
-    from gdiet_tpu_torch.ops import dp, dp_fold, extd2, vote
-    from gdiet_tpu_torch.pipeline import device_step
+    width, never folded), with ``dp_kernel`` that one alone."""
+    from gdiet_tpu_torch.ops import backtrack, dp, dp_fold, extd2, vote
 
     n = {"extd2_launches": extd2.launches.n, "extd2_i16_launches": extd2.i16_launches.n,
          "extd2_fold_i16_launches": extd2.fold_i16_launches.n,
@@ -1022,12 +1018,12 @@ def sr_counts(what: str, cuda: bool, dp_kernel: str | None = None) -> dict:
          "dp_launches": (extd2.launches.n + extd2.i16_launches.n + extd2.fold_launches.n
                          + extd2.fold_i16_launches.n),
          "plain_dp_calls": dp.calls.n + dp_fold.calls.n,
-         "vote_launches": vote.launches.n, "plain_vote_calls": device_step.vote_calls.n,
+         "vote_launches": vote.launches.n, "plain_vote_calls": vote.vote_calls.n,
          "backtrack_launches": extd2.backtrack_launches.n,
-         "plain_backtrack_calls": device_step.backtrack_calls.n}
+         "plain_backtrack_calls": backtrack.backtrack_calls.n}
     if cuda:
         routes = ({dp_kernel} if dp_kernel else
-                  {sr_dp_kernel(L, f) for L in (128, 160, 192, 256, 512) for f in (False, True)})
+                  {sr_dp_kernel(L) for L in (128, 160, 192, 256, 512)})
         check(sum(n[f"{k}_launches"] for k in routes) == n["dp_launches"],
               f"{what} launched DP kernels off its routes {sorted(routes)}: {n}")
         for kern in ("dp", "vote", "backtrack"):
@@ -1151,7 +1147,7 @@ def phase_main(device, B: int, n_timed: int, genome_len: int, card: str) -> dict
         sam += bytes(blob).decode().splitlines()
     sync()
     wall = time.perf_counter() - t0
-    dp_kernel = sr_dp_kernel(MAIN_BUDGETS["max_read_len"], False)
+    dp_kernel = sr_dp_kernel(MAIN_BUDGETS["max_read_len"])
     counts = sr_counts("the main path", cuda, dp_kernel)
     launches, plain_calls = counts[f"{dp_kernel}_launches"], dp.calls.n
     stats = mapper.stats
@@ -1264,7 +1260,7 @@ def dp_at_size(mapper, codes, lens, cuda: bool, n_plain: int = 1024) -> tuple:
     versions on the first ``n_plain`` rows (exact), whose plain times are
     reported for those rows. Returns (the report, the captured call)."""
     from gdiet_tpu_torch.ops import dp, extd2
-    from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
+    from gdiet_tpu_torch.ops.backtrack import backtrack_antidiag
 
     seen = capture_calls(extd2, ["extd2_batch"], lambda: mapper.fused(codes, lens))["extd2_batch"]
     check(len(seen) == 1 and not seen[0][1].get("fold"), "the step made no unfolded DP call")
@@ -1458,7 +1454,7 @@ def dp_call_check(call, fold: bool, what: str) -> dict:
     DP kernel and its plain version at the call's shapes, then the DP
     outputs through the backtrack kernel and the plain walk: all exact."""
     from gdiet_tpu_torch.ops import dp, dp_fold, extd2
-    from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
+    from gdiet_tpu_torch.ops.backtrack import backtrack_antidiag
 
     (q, t, ln, bd, params, L), kw = call
     check(bool(kw.get("fold")) == fold,
@@ -1523,11 +1519,10 @@ def per_phase(mapper, codes, lens, cuda: bool, finish) -> dict:
 
 
 def phase_golden_pe(card: str) -> dict:
-    """The PE fixture through the port's CLI: cuda with the fold, cpu (the
-    plain versions) and cuda without the fold must write the same records;
+    """The PE fixture through the port's CLI: cuda and cpu (the plain
+    versions) must write the same records, cuda launching no fold kernel;
     R1 records match the reference's single-end golden except for what
     pairing rewrites (FLAG PE bits, MAPQ, mate columns)."""
-    import os
     import tempfile
 
     from gdiet_tpu_torch import cli
@@ -1537,28 +1532,23 @@ def phase_golden_pe(card: str) -> dict:
     inputs = [str(DATA / f) for f in ("ref_pe.fa", "reads_pe_1.fq", "reads_pe_2.fq")]
     runs, bt = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, device, fold in (("cuda_fold", "cuda", "1"), ("cpu_fold", "cpu", "1"),
-                                   ("cuda_unfold", "cuda", "0")):
-            os.environ["GDIET_DP_FOLD"] = fold
+        for device in ("cuda", "cpu"):
             sr_counts_reset()
-            out = pathlib.Path(tmp) / f"{name}.sam"
+            out = pathlib.Path(tmp) / f"{device}.sam"
             check(cli.main(["--device", device, *PE_ARGS, "-o", str(out), *inputs]) == 0,
-                  f"PE CLI on {device} (fold {fold}) failed")
-            runs[name] = sam_body(out)
+                  f"PE CLI on {device} failed")
+            runs[device] = sam_body(out)
             if device == "cuda":
-                bt[name] = sr_counts(f"the PE CLI ({name})", True)
-            if name == "cuda_fold":
-                check(extd2.fold_launches.n + extd2.fold_i16_launches.n > 0,
-                      "the PE CLI launched no fold kernel")
-    os.environ.pop("GDIET_DP_FOLD")
-    ref = runs["cuda_fold"]
-    for name in ("cpu_fold", "cuda_unfold"):
-        same = sum(a == b for a, b in zip(ref, runs[name]))
-        check(runs[name] == ref, f"PE records differ from {name}: {same}/{len(ref)} equal")
+                bt[device] = sr_counts("the PE CLI", True)
+                check(extd2.fold_launches.n + extd2.fold_i16_launches.n == 0,
+                      "the PE CLI launched a fold kernel")
+    ref = runs["cuda"]
+    same = sum(a == b for a, b in zip(ref, runs["cpu"]))
+    check(runs["cpu"] == ref, f"PE records differ on cpu: {same}/{len(ref)} equal")
     n_checked, bad = r1_vs_single_end(ref, sam_body(DATA / "golden_pe_r1.sam"))
     check(not bad, f"R1 records {bad[:5]} differ from golden_pe_r1.sam")
     check(n_checked > 200, f"only {n_checked} R1 records checked")
-    res = {"records": len(ref), "identical_cpu_and_unfolded": True,
+    res = {"records": len(ref), "identical_cpu": True,
            "r1_checked_against_golden": n_checked,
            "launches_and_plain_calls": bt, "card": card}
     say("golden_pe", **res)
@@ -1616,15 +1606,9 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
     mo.flag |= config.MM_F_OUT_SAM | config.MM_F_CIGAR  # -a
     mi = build_index([("chr1", genome)], io_, device)
 
-    def make_mapper(fold: bool) -> ShortReadMapper:
-        # the JAX runtime's PE budgets at Lmax 160 (runtime.py:378-385)
-        return ShortReadMapper(mi, mo, max_read_len=160, seed_budget=32,
-                               shift_seed_budget=16, hit_budget=64,
-                               dp_frac=0.3125, device=device, dp_fold=fold)
-
-    mapper, unfolded = make_mapper(True), make_mapper(False)
-    check(mapper.fused.cfg.dp_fold and not unfolded.fused.cfg.dp_fold,
-          "dp_fold did not select the folded DP")
+    # the JAX runtime's PE budgets at Lmax 160 (runtime.py:378-385)
+    mapper = ShortReadMapper(mi, mo, max_read_len=160, seed_budget=32, shift_seed_budget=16,
+                             hit_budget=64, dp_frac=0.3125, device=device)
     batches = [pairs[i * P:(i + 1) * P] for i in range(n_timed + 1)]
 
     def run(m, bs) -> list:
@@ -1641,15 +1625,16 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
     sam += run(mapper, batches[1:])
     sync()
     wall = time.perf_counter() - t0
-    unfold_launches, fold_launches, plain_calls, plain_fold_calls = (sum(c.n for c in cs)
-                                                                     for cs in counts)
-    pe_counts = sr_counts("the PE path", cuda, sr_dp_kernel(MAIN_BUDGETS["max_read_len"], True))
+    full_launches, fold_launches, plain_calls, plain_fold_calls = (sum(c.n for c in cs)
+                                                                   for cs in counts)
+    dp_kernel = sr_dp_kernel(MAIN_BUDGETS["max_read_len"])
+    pe_counts = sr_counts("the PE path", cuda, dp_kernel)
     if cuda:
-        check(fold_launches > 0, "the PE path launched no fold kernel")
+        check(full_launches > 0, "the PE path launched no full-width DP kernel")
         check(plain_fold_calls == 0 and plain_calls == 0,
-              f"the PE path called the plain DP ({plain_calls} unfolded, "
+              f"the PE path called the plain DP ({plain_calls} full width, "
               f"{plain_fold_calls} folded)")
-        check(unfold_launches == 0, f"the PE path launched the unfolded kernel {unfold_launches} times")
+        check(fold_launches == 0, f"the PE path launched a fold kernel {fold_launches} times")
 
     # ---- correctness: placement, the oracle, fold off ----
     prim = [f for f in (l.split("\t") for l in sam) if not int(f[1]) & 0x900]
@@ -1680,10 +1665,6 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
     oracle = b"".join(mapper._oracle_sam_pe(p, 0) for p in pairs[:PE_ORACLE]).decode().splitlines()
     mine = [l for n in range(PE_ORACLE) for l in by_name[f"p{n}"]]
     check(mine == oracle, "SAM of the first pairs differs from the oracle's PE finish")
-    sr_counts_reset()
-    check(run(unfolded, batches[:1]) == first_batch,
-          "the first batch's SAM differs with the fold off")
-    unfold_counts = sr_counts("the PE path with the fold off", cuda)
 
     # ---- per-phase device times of one batch ----
     state = mapper._prepare_pe(batches[1], P)
@@ -1692,19 +1673,29 @@ def phase_pe(device, P: int, n_timed: int, genome_len: int, card: str) -> dict:
     phases = per_phase(mapper, codes, lens, cuda, lambda dev, fetched: mapper._finish_pe(
         (*state[:4], dev, *state[5:]), 0, fetched))
 
-    # ---- the fold and backtrack kernels on the DP inputs the step gives them ----
-    step, dp_call = step_dp_check(mapper, codes, lens, fold=True)
+    # ---- the DP and backtrack kernels on the DP inputs the step gives them;
+    # the fold kernel on the same rows (no path folds; kernel_int16 times it
+    # there): exact, and its scores the full width's ----
+    step, dp_call = step_dp_check(mapper, codes, lens, fold=False)
+    (q, t, ln, bd, params, L), kw = dp_call
+    fold_call = ((q, t, ln, bd, params, L),
+                 {"fold": True, "state_dtype": extd2.route_state_dtype(params, L, fold=True)})
+    fold = {f"fold_{k}": v for k, v in
+            dp_call_check(fold_call, True, "the step's rows, folded").items()}
+    live = ln > 0
+    full_score = extd2.extd2_batch(q, t, ln, bd, params, L, **kw)[0]
+    fold_score = extd2.extd2_batch(q, t, ln, bd, params, L, **fold_call[1])[0]
+    check(bool((full_score[live] == fold_score[live]).all()),
+          "the fold's scores differ from the full width's on the step's rows")
     res = {"pairs": n_pairs, "timed_pairs": P * n_timed, "batch_pairs": P,
            "pairs_per_s": P * n_timed / wall, "timed_wall_s": wall,
            "fallback_pairs": warm["fallback_reads"] + mapper.stats["fallback_reads"],
            "plain_dp_calls": plain_calls, "plain_fold_calls": plain_fold_calls,
-           **pe_counts, "fold_off_launches_and_plain_calls": unfold_counts,
-           "pairs_both_mapped": both / n_pairs, "mapped_at_origin": near / len(mapped),
-           **step,
-           "oracle_pairs_equal": PE_ORACLE, "first_batch_equal_unfolded": True,
-           "phase_ms": phases, "card": card}
+           "dp_kernel": dp_kernel, **pe_counts, "pairs_both_mapped": both / n_pairs,
+           "mapped_at_origin": near / len(mapped), **step, **fold,
+           "oracle_pairs_equal": PE_ORACLE, "phase_ms": phases, "card": card}
     say("pe", **res)
-    res["dp_calls"] = [dp_call]  # for kernel_int16
+    res["dp_calls"], res["fold_dp_calls"] = [dp_call], [fold_call]  # for kernel_int16
     return res
 
 
@@ -1788,7 +1779,7 @@ def phase_kernel_band(device, card: str, N: int = 64, Lmax: int = 2048,
     import torch
 
     from gdiet_tpu_torch.ops import dp, dp_band, extd2
-    from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
+    from gdiet_tpu_torch.ops.backtrack import backtrack_antidiag
 
     cuda = torch.device(device).type == "cuda"
     U = dp_band.LR_UNROLL
@@ -1942,11 +1933,11 @@ _STREAM_COLUMN_CALLS = {"n": 0}
 
 
 def _count_stream_columns() -> None:
-    """Count the calls of ``lr_step._stream_columns`` (the plain LR loops'
+    """Count the calls of ``vote._stream_columns`` (the plain LR loops'
     column list, which syncs with the host) from here on."""
-    from gdiet_tpu_torch.pipeline import lr_step
+    from gdiet_tpu_torch.ops import vote
 
-    f = lr_step._stream_columns
+    f = vote._stream_columns
     if getattr(f, "counted", False):
         return
 
@@ -1955,21 +1946,20 @@ def _count_stream_columns() -> None:
         return f(*a, **kw)
 
     counted.counted = True
-    lr_step._stream_columns = counted
+    vote._stream_columns = counted
 
 
 def lr_counts_reset() -> None:
     """Zero the launch counts of the LR path's kernels (band, full-width
     DP, backtrack, vote_lr) and the call counts of their plain versions
     (the LR vote loops and ``_stream_columns`` included)."""
-    from gdiet_tpu_torch.ops import dp, dp_band, extd2, vote
-    from gdiet_tpu_torch.pipeline import device_step, lr_step
+    from gdiet_tpu_torch.ops import backtrack, dp, dp_band, extd2, vote
 
     _count_stream_columns()
     _STREAM_COLUMN_CALLS["n"] = 0
     for c in (extd2.band_launches, extd2.launches, extd2.band_i16_launches,
               extd2.i16_launches, extd2.backtrack_launches, vote.lr_launches,
-              dp_band.calls, dp.calls, device_step.backtrack_calls, lr_step.vote_calls):
+              dp_band.calls, dp.calls, backtrack.backtrack_calls, vote.lr_vote_calls):
         c.reset()
 
 
@@ -1978,16 +1968,15 @@ def lr_counts(what: str, cuda: bool) -> dict:
     last reset; on the card the DP (band or full width, in the LR route's
     lane state, int16: the int16 kernels, no int32 one), backtrack and
     vote kernels must have run and no plain version."""
-    from gdiet_tpu_torch.ops import dp, dp_band, extd2, vote
-    from gdiet_tpu_torch.pipeline import device_step, lr_step
+    from gdiet_tpu_torch.ops import backtrack, dp, dp_band, extd2, vote
 
     n = {"band_i16_launches": extd2.band_i16_launches.n,
          "full_width_i16_launches": extd2.i16_launches.n,
          "band_launches": extd2.band_launches.n, "full_width_launches": extd2.launches.n,
          "backtrack_launches": extd2.backtrack_launches.n,
          "vote_lr_launches": vote.lr_launches.n, "plain_band_calls": dp_band.calls.n,
-         "plain_dp_calls": dp.calls.n, "plain_backtrack_calls": device_step.backtrack_calls.n,
-         "plain_lr_vote_calls": lr_step.vote_calls.n,
+         "plain_dp_calls": dp.calls.n, "plain_backtrack_calls": backtrack.backtrack_calls.n,
+         "plain_lr_vote_calls": vote.lr_vote_calls.n,
          "stream_columns_calls": _STREAM_COLUMN_CALLS["n"]}
     if cuda:
         check(n["band_i16_launches"] + n["full_width_i16_launches"] > 0
@@ -2045,8 +2034,7 @@ def lr_dp_call_check(call, what: str) -> dict:
     """One captured windowed DP call through the band kernel and its plain
     version at the call's shapes, then its dirs through the backtrack
     kernel and the plain walk: exact."""
-    from gdiet_tpu_torch.ops import dp_band, extd2
-    from gdiet_tpu_torch.pipeline import device_step
+    from gdiet_tpu_torch.ops import backtrack, dp_band, extd2
 
     (q, t, ln, bd, params, L), kw = call
     Lt, bb, U, tl = kw["Lt"], kw["band_budget"], kw["unroll"], kw["tlens"]
@@ -2059,8 +2047,8 @@ def lr_dp_call_check(call, what: str) -> dict:
     err = check_equal(got, ref, DP_OUTPUTS, f"{what}'s DP inputs")
     bt_err = check_equal(
         extd2.backtrack_band(got[1], ln, tl, bd, L, Lt, band_budget=bb, unroll=U),
-        device_step.backtrack_antidiag(got[1], ln, bd, L, tlens=tl, Lt=Lt,
-                                       band_budget=bb, unroll=U),
+        backtrack.backtrack_antidiag(got[1], ln, bd, L, tlens=tl, Lt=Lt,
+                                     band_budget=bb, unroll=U),
         BT_OUTPUTS, f"{what}'s backtrack")
     return {"Lmax": L, "Lt": Lt, "rows": int(q.shape[0]), "live_rows": int((ln > 0).sum()),
             "state_dtype": sd, "max_abs_err": err, "backtrack_max_abs_err": bt_err}
@@ -2163,7 +2151,6 @@ def vote_lr_vs_plain(calls: dict, cuda: bool, what: str) -> dict:
     round 2's two windows); the warps each entry point launches; the launch
     floor (an empty kernel's device time at the same launch shape)."""
     from gdiet_tpu_torch.ops import vote
-    from gdiet_tpu_torch.pipeline import lr_step
 
     (a1, _), = calls["vote_lr"]
     (a2, _), = calls["vote2_pair"]
@@ -2173,17 +2160,17 @@ def vote_lr_vs_plain(calls: dict, cuda: bool, what: str) -> dict:
     check(valid_first(fok) and valid_first(rok), f"the captured {what} stream is not valid-first")
     keys, qv, okv, strand = vote.concat_stream(*halves)
     strand = strand.tolist()
-    cols = lr_step._stream_columns(fok, rok)
+    cols = vote._stream_columns(fok, rok)
     got1, ref1, t1 = kernel_vs_plain(
         lambda: vote.vote_lr(*halves, ex, dist, cov, K),
-        lambda: lr_step._vote_scan_lr(keys, qv, okv, strand, ex, dist, cov, K, cols),
+        lambda: vote._vote_scan_lr(keys, qv, okv, strand, ex, dist, cov, K, cols),
         cuda, plain_runs=1)
     err1 = check_equal([got1[n] for n in vote.LR_OUTPUTS], [ref1[n] for n in vote.LR_OUTPUTS],
                        vote.LR_OUTPUTS, f"vote_lr on {what}")
     got2, ref2, t2 = kernel_vs_plain(
         lambda: vote.vote2_pair(*halves, ex, dist, lo1, hi1, lo2, hi2),
-        lambda: lr_step.vote2_packed_pair(keys, qv, okv, strand, ex, dist, lo1, hi1, lo2, hi2,
-                                          cols),
+        lambda: vote.vote2_packed_pair(keys, qv, okv, strand, ex, dist, lo1, hi1, lo2, hi2,
+                                       cols),
         cuda, plain_runs=1)
     err2 = check_equal([got2], [ref2], ("vote2",), f"vote2_pair on {what}")
     B, A = fok.shape
@@ -2218,7 +2205,8 @@ def vote_lr_vs_plain(calls: dict, cuda: bool, what: str) -> dict:
 
 def phase_lr(device, n_timed: int, genome_len: int, card: str, B: int = LR_BATCH) -> tuple:
     """The HiFi path at full size: bench.py's lr_stats options and mapper
-    budgets, batches of B reads, 1 warm-up + n_timed timed through
+    budgets less its vote budget (the port's votes read every hit), batches
+    of B reads, 1 warm-up + n_timed timed through
     map_stream. Checks: >= 90% of reads mapped, the first reads' SAM equal
     to the scalar oracle's, band, backtrack and vote_lr launches > 0 and no
     plain call (the LR vote loops and ``_stream_columns`` included) in the
@@ -2246,8 +2234,7 @@ def phase_lr(device, n_timed: int, genome_len: int, card: str, B: int = LR_BATCH
     mo.flag |= config.MM_F_OUT_SAM | config.MM_F_CIGAR  # -a
     mi = build_index([("chr1", genome)], io_, device)
     mapper = LongReadMapper(mi, mo, max_read_len=4096, seed_budget=512,
-                            shift_seed_budget=128, hit_budget=2048, vote_budget=512,
-                            device=device)
+                            shift_seed_budget=128, hit_budget=2048, device=device)
     batches = [reads[i * B:(i + 1) * B] for i in range(n_timed + 1)]
 
     # ---- the LR path: counts reset just before, read just after ----
@@ -2332,13 +2319,14 @@ def ont_workload(n_reads: int, genome_len: int = GENOME_LEN, read_len: int = ONT
 def phase_ont(device, n_timed: int, genome_len: int, card: str, B: int = ONT_BATCH,
               read_len: int = ONT_READ_LEN) -> dict:
     """The ONT path at full size, its first run on the card: bench.py's
-    ont_stats options and mapper budgets (max_read_len 32,768, seed budget
-    4,096, hit budget 8,192, vote budget 4,096, band 1300, K = 3) on
+    ont_stats options and mapper budgets less its vote budget
+    (max_read_len 32,768, seed budget
+    4,096, hit budget 8,192, band 1300, K = 3) on
     ont_workload's 30 kb reads, batches of B, 1 warm-up + n_timed timed
     through map_stream. Checks: >= 90% of reads mapped; the DP, backtrack
     and vote_lr kernels launched and no plain version called (the LR vote
     loops and ``_stream_columns`` included) in the timed window; one
-    batch's captured vote stream (M = 8,194) through vote_lr.cu and the
+    batch's captured vote stream (M = 16,386) through vote_lr.cu and the
     plain loops, exact. Reports reads/s, fallbacks and host DP segments
     (``LongReadMapper.stats``) and one batch's per-phase times."""
     import torch
@@ -2365,8 +2353,7 @@ def phase_ont(device, n_timed: int, genome_len: int, card: str, B: int = ONT_BAT
     sync()
     index_s = time.perf_counter() - t0
     mapper = LongReadMapper(mi, mo, max_read_len=32768, seed_budget=4096,
-                            shift_seed_budget=1024, hit_budget=8192, vote_budget=4096,
-                            device=device)
+                            shift_seed_budget=1024, hit_budget=8192, device=device)
     batches = [reads[i * B:(i + 1) * B] for i in range(n_timed + 1)]
     t0 = time.perf_counter()
     results = list(mapper.map_stream(iter(batches[:1])))  # warm-up batch
@@ -2801,7 +2788,7 @@ def phase_prev_fold_i16(lib, card: str, calls: dict) -> dict:
     """``--prev DIR`` with an earlier ``extd2_fold_i16.cu`` (same C entry
     point, e.g. one in which every thread computes the row scalars and
     walks H0; ``dp_pair.cuh`` beside it in DIR): on the PE step's captured
-    fold call and the SE fold call (``calls``) the earlier source, the
+    DP rows folded and the SE fold call (``calls``) the earlier source, the
     checkout's and ``extd2_fold.cu`` (int32), all through ``extd2_batch``:
     score and dirs exact, timed in turns (int32, earlier, current, current,
     earlier, int32; each the median of KERNEL_ROUNDS rounds). The
@@ -2963,7 +2950,7 @@ def phase_kernel_int16(card: str, calls: dict, built=None, seeded=None) -> dict:
     captured them): the SE step's full width (160 lanes; extd2_i16.cu's
     two-rows-a-warp layout), the generic step's at 256 and 512
     lanes (the plain version on the 512-lane call, 8,192 rows), the PE
-    step's fold (5,120 rows; extd2_fold_i16.cu), each DP call of one HiFi
+    step's DP rows folded (5,120 rows; extd2_fold_i16.cu), each DP call of one HiFi
     batch (extd2_band_i16.cu; the full-width (512, 1024) bucket, where the
     batch has one, extd2_i16.cu's block route) and the ONT batch's (32768,
     34048) chunk. All outputs exact, against the plain version once per
@@ -2996,7 +2983,7 @@ def phase_kernel_int16(card: str, calls: dict, built=None, seeded=None) -> dict:
             "generic": [int16_run(c, f"the generic step's DP call at Lmax {c[0][5]}",
                                   c[0][5] == 512)
                         for c in calls["generic"]],
-            "pe": [int16_run(calls["pe"][0], "the PE step's DP call", True)],
+            "pe": [int16_run(calls["pe"][0], "the PE step's DP rows folded", True)],
             "se_fold": [int16_run(calls["se_fold"][0], "the SE fold call (6,272 seeded rows)",
                                   False)]}
     hifi = calls["hifi"]
@@ -3185,8 +3172,7 @@ def phase_mesh_lr(device, card: str, B: int = LR_BATCH, genome_len: int = GENOME
         vt_cov=0.04, vt_f=0.04)
     mo.flag |= config.MM_F_OUT_SAM | config.MM_F_CIGAR  # -a
     mi = build_index([("chr1", genome)], io_, device)
-    kw = dict(max_read_len=4096, seed_budget=512, shift_seed_budget=128, hit_budget=2048,
-              vote_budget=512)
+    kw = dict(max_read_len=4096, seed_budget=512, shift_seed_budget=128, hit_budget=2048)
     single = LongReadMapper(mi, mo, device=device, **kw)
     meshed = LongReadMapper(mi, mo, mesh=make_mesh(2, 2, [device] * 4), **kw)
     lens = np.array([r.l_seq for r in reads], np.int64)
@@ -3422,11 +3408,11 @@ def main(argv=None) -> int:
     seeded = seeded_full_calls()
     se_fold = [se_fold_call()]
     k16 = phase_kernel_int16(card, {"se": m["dp_calls"], "generic": gen["dp_calls"],
-                                    "pe": pe["dp_calls"], "se_fold": se_fold,
+                                    "pe": pe["fold_dp_calls"], "se_fold": se_fold,
                                     "hifi": lr["dp_calls"], "ont": ont["dp_calls"]}, built, seeded)
     if "extd2_fold_i16" in prev:
         phase_prev_fold_i16(prev["extd2_fold_i16"][0], card,
-                            {"pe": pe["dp_calls"][0], "se": se_fold[0]})
+                            {"pe": pe["fold_dp_calls"][0], "se": se_fold[0]})
     del se_fold
     if "extd2_band_i16" in prev:
         phase_prev_band(prev["extd2_band_i16"][0], card,
@@ -3442,8 +3428,8 @@ def main(argv=None) -> int:
     k16_full = k16["runs"]["se"][0]
     se_kernel = m["dp_kernel"]
     se_errs = [m["step_dp_max_abs_err"]] + [r["dp_max_abs_err"] for r in mesh["runs"]]
-    k16_pe = k16["runs"]["pe"][0]
-    pe_i16 = pe["step_dp_state_dtype"] == "int16"
+    k16_pe = k16["runs"]["pe"][0]  # the fold on the PE step's rows
+    pe_errs = [pe["step_dp_max_abs_err"]]
     k16_band = next(r for r in k16["runs"]["hifi"]
                     if r["kernel"] == "extd2_band_i16" and "plain_ms" in r)
     kv_main = kv["runs"][0]  # the main phase's stream (M = 130, K = 2)
@@ -3452,9 +3438,10 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         {"name": "extd2", "route": "cuda", "source": src + "extd2.cu",
          "replaces": "gdiet_tpu/ops/dp_pallas.py:170",
-         "launches": m["extd2_launches"],  # 0 where the SE route takes int16
+         "launches": m["extd2_launches"] + pe["extd2_launches"],  # 0 where SE/PE take int16
          "max_abs_err": max([k["max_abs_err"], kb["full_width_bucket"]["max_abs_err"]]
-                            + (se_errs if se_kernel == "extd2" else [])),
+                            + (se_errs if se_kernel == "extd2" else [])
+                            + (pe_errs if pe["dp_kernel"] == "extd2" else [])),
          "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
          **{x: k[x] for x in bound_keys}, "library_ms": None},
         {"name": "extd2_band", "route": "cuda", "source": src + "extd2_band.cu",
@@ -3467,12 +3454,13 @@ def main(argv=None) -> int:
         # captured calls (kernel_int16), launches on the routes that take them
         {"name": "extd2_i16", "route": "cuda", "source": src + "extd2_i16.cu",
          "replaces": "gdiet_tpu/ops/dp_pallas.py:183",
-         "launches": (m["extd2_i16_launches"]
+         "launches": (m["extd2_i16_launches"] + pe["extd2_i16_launches"]
                       + sum(r["full_width_i16_launches"] for r in (lr, ont, *glr.values()))
                       + sum(c["extd2_i16_launches"]
                             for c in gen["launches_and_plain_calls"].values())),
          "max_abs_err": max([int16_err(k16, "extd2_i16")]
-                            + (se_errs if se_kernel == "extd2_i16" else [])),
+                            + (se_errs if se_kernel == "extd2_i16" else [])
+                            + (pe_errs if pe["dp_kernel"] == "extd2_i16" else [])),
          "ms": k16_full["int16_ms"], "plain_ms": k16_full["plain_ms"],
          **{x: k16_full[x] for x in bound_keys}, "library_ms": None},
         {"name": "extd2_band_i16", "route": "cuda", "source": src + "extd2_band_i16.cu",
@@ -3484,16 +3472,18 @@ def main(argv=None) -> int:
          **{x: k16_band[x] for x in bound_keys}, "library_ms": None},
         {"name": "extd2_fold_i16", "route": "cuda", "source": src + "extd2_fold_i16.cu",
          "replaces": "gdiet_tpu/ops/dp_pallas.py:428",
-         "launches": pe["extd2_fold_i16_launches"],  # the PE route's fold at 160 lanes
+         "launches": pe["extd2_fold_i16_launches"],  # 0: no path folds
          "max_abs_err": max([int16_err(k16, "extd2_fold_i16")]
-                            + ([pe["step_dp_max_abs_err"]] if pe_i16 else [])),
+                            + ([pe["fold_step_dp_max_abs_err"]]
+                               if pe["fold_step_dp_state_dtype"] == "int16" else [])),
          "ms": k16_pe["int16_ms"], "plain_ms": k16_pe["plain_ms"],
          **{x: k16_pe[x] for x in bound_keys}, "library_ms": None},
         {"name": "extd2_fold", "route": "cuda", "source": src + "extd2_fold.cu",
          "replaces": "gdiet_tpu/ops/dp_pallas.py:419",
-         "launches": pe["extd2_fold_launches"],  # 0 where the PE route takes int16
+         "launches": pe["extd2_fold_launches"],  # 0: no path folds
          "max_abs_err": max([kf["max_abs_err"], kf_pe["max_abs_err"]]
-                            + ([] if pe_i16 else [pe["step_dp_max_abs_err"]])),
+                            + ([] if pe["fold_step_dp_state_dtype"] == "int16"
+                               else [pe["fold_step_dp_max_abs_err"]])),
          "ms": kf["kernel_ms"], "plain_ms": kf["plain_ms"],
          **{x: kf[x] for x in bound_keys}, "library_ms": None},
         {"name": "backtrack_band", "route": "cuda", "source": src + "backtrack_band.cu",

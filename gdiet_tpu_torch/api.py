@@ -74,8 +74,7 @@ class Aligner:
     ``Aligner(fn_idx_in, preset=..., k=..., w=..., pattern=...)`` builds an
     index from a FASTA path or loads a prebuilt npz index (saved by either
     package); ``Aligner(seq=...)`` indexes one in-memory sequence
-    (mm_idx_str analog, index.c:425-474). ``GDIET_DP_FOLD=1`` folds the
-    short-read DP, as in the CLI.
+    (mm_idx_str analog, index.c:425-474).
     """
 
     def __init__(
@@ -122,11 +121,9 @@ class Aligner:
             self.index.save(fn_idx_out)
         if variant == "sr":
             from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
-            from gdiet_tpu_torch.runtime import dp_fold_env
 
             self._mapper = ShortReadMapper(self.index, self._mo,
-                                           max_read_len=max_read_len,
-                                           device=device, dp_fold=dp_fold_env())
+                                           max_read_len=max_read_len, device=device)
         else:
             from gdiet_tpu_torch.pipeline.longread import LongReadMapper
 

@@ -11,10 +11,8 @@ reference's main.c): the tokenizer and the option loop below are copies of
 its ketopt-style scan and its parser, and set the same
 ``IndexOptions``/``MapOptions`` fields; options whose semantics are dead in
 the GDiet hot path warn and go on. Two query files (``r1.fq r2.fq``) map
-short reads as pairs. ``GDIET_DP_FOLD=1`` runs the short-read DP through
-the folded kernel where the banded lane window cannot engage, as in
-``gdiet_tpu``. Presets ``sr`` / ``short`` select the short-read pipeline,
-all others the long-read one (``--variant`` overrides).
+short reads as pairs. Presets ``sr`` / ``short`` select the short-read
+pipeline, all others the long-read one (``--variant`` overrides).
 
 ``--device`` (default ``cuda``) is the port's own option and picks the
 torch device; without a GPU, ``cuda`` is an error. The target is FASTA

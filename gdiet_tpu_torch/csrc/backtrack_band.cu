@@ -3,9 +3,9 @@
 //
 // Replaces gdiet_tpu/pipeline/device_step.py::_backtrack_antidiag (an XLA
 // scan there, not a Pallas kernel) on every path: the short-read step
-// (single-end and paired-end, folded or not) and the long-read DP buckets.
-// It writes exactly what
-// gdiet_tpu_torch/pipeline/device_step.py::backtrack_antidiag writes for
+// (single-end and paired-end) and the long-read DP buckets, and on the
+// folded dirs of extd2_batch(fold=True). It writes exactly what
+// gdiet_tpu_torch/ops/backtrack.py::backtrack_antidiag writes for
 // the same dirs: ops[N][Rpad] back to front, the op taken on antidiagonal r
 // at column Rpad-1-r, 255 on every other column, and the walk's end point
 // (fin_i, fin_j). Lane i of antidiagonal r sits at column

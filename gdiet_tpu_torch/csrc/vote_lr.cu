@@ -4,7 +4,7 @@
 // gdiet_vote_lr, the round-1 vote, replaces
 // gdiet_tpu/pipeline/lr_step.py::_vote_scan_lr (a lax.scan there, not a
 // Pallas kernel) and returns exactly what
-// gdiet_tpu_torch/pipeline/lr_step.py::_vote_scan_lr returns for the
+// gdiet_tpu_torch/ops/vote.py::_vote_scan_lr returns for the
 // concatenated stream fwd | barrier | rev | barrier: the top-K runs by
 // count (k_score, k_first_t, k_last_t, k_fq, k_lq, k_str; out_len of them).
 // A run is a maximal stretch of valid columns of one half whose keys stay
@@ -75,7 +75,7 @@
 // - ref_loc (a key below ref_loc breaks the run); the raw target's uint64
 // wrap, which differs per half; the int32 gate lq - fq > cov_thr (cov_thr
 // may be negative); empty halves; runs crossing a step; a full K-list with
-// ties; row strides ld > A (the vote_budget slice is a view).
+// ties; row strides ld > A (a column slice of the halves is a view).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -3,7 +3,7 @@
 //
 // Replaces gdiet_tpu/pipeline/device_step.py::_vote_scan (a lax.scan there,
 // not a Pallas kernel). It returns exactly what
-// gdiet_tpu_torch/pipeline/device_step.py::vote_scan returns for the
+// gdiet_tpu_torch/ops/vote.py::_vote_scan returns for the
 // concatenated stream fwd | barrier | rev | barrier: per read, the top-K
 // runs kept by the reference's insertion (score, target, first and last
 // query position, strand; out_len of them) and the recovery candidate

@@ -4,8 +4,8 @@
 //
 // The stream of read b is read in place from the six [B][ld] tensors the
 // hit collection returns: the forward half (fk, fq, fok) and the reverse
-// half (rk, rq, rok), A columns each (A <= ld: the long-read front's
-// vote_budget slice is a view). The plain versions walk the concatenation
+// half (rk, rq, rok), A columns each (A <= ld: a column slice of the
+// halves is a view). The plain versions walk the concatenation
 // fwd | barrier | rev | barrier, where a barrier column is invalid. A run
 // never spans an invalid column, so the strand of a valid head is the half
 // it lies in, and each barrier is a call of gap(h) at the end of half h.

@@ -1,5 +1,7 @@
-"""Device compute of the port: sketch, banded DP and backtrack (plain
-torch + CUDA), and the host-side SDUST mask."""
+"""Device compute of the port: the sketch, the banded DP, the backtrack
+and the votes, each kernel's wrapper beside its plain torch twin, and the
+host-side SDUST mask. Nothing here imports the layers that call it
+(``pipeline/``, ``parallel/``, ``runtime``, ``api``, ``cli``)."""
 
 
 class LaunchCount:

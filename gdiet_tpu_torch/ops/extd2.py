@@ -16,8 +16,9 @@ otherwise what ``ops/dp.py::extd2_batch`` returns. Its ``state_dtype``
 state is 16-bit (the ``*_i16.cu`` kernels pack two lanes in each 32-bit
 register), exact under ``dp.safe_state_dtype``'s bound, and outside it
 raises ``ValueError``. ``backtrack_band`` walks
-the dirs of any of the three layouts: the short-read step's (full width or
-folded) and the long-read buckets' (banded or full width).
+the dirs of any of the three layouts: full width (the short-read step's),
+folded, and banded (the long-read buckets'); on the CPU it runs
+``ops/backtrack.py``.
 
 For CUDA tensors each launches its hand-written kernel (built with ``nvcc``
 for ``sm_90a`` at first use and bound with ctypes); for CPU tensors it runs
@@ -45,6 +46,7 @@ import torch
 
 from gdiet_tpu_torch.ops import LaunchCount
 from gdiet_tpu_torch.ops import dp, dp_band, dp_fold
+from gdiet_tpu_torch.ops.backtrack import backtrack_antidiag
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -513,12 +515,10 @@ def backtrack_band(dirs, lens, tlens, band, Lmax: int, Lt: int,
     with ``fold=True``; else the windowed layout of ``extd2_band`` when
     ``band_budget``'s window engages at (Lt, unroll); else the full width
     of ``extd2`` ([N, R, round16(Lt)]). Returns (ops [N, Rpad] u8, fin_i
-    [N] i32, fin_j [N] i32) as ``pipeline/device_step.py::backtrack_antidiag``
+    [N] i32, fin_j [N] i32) as ``ops/backtrack.py::backtrack_antidiag``
     does, which is what CPU tensors run; CUDA tensors launch
     ``csrc/backtrack_band.cu``."""
     if dirs.device.type == "cpu":
-        from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
-
         return backtrack_antidiag(dirs, lens, band, Lmax, tlens=tlens, Lt=Lt, fold=fold,
                                   band_budget=band_budget, unroll=unroll)
     if dirs.device.type != "cuda":

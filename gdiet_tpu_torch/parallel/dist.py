@@ -39,8 +39,8 @@ import torch
 
 from gdiet_tpu_torch import u64
 from gdiet_tpu_torch.index.build import bucket_table, lookup_vals
-from gdiet_tpu_torch.pipeline.device_step import (_pattern_tables, all_gather_ref, at_width,
-                                                  dp_rows, fused_map_step, psum_ref,
+from gdiet_tpu_torch.pipeline.device_step import (all_gather_ref, at_width, dp_rows,
+                                                  fused_map_step, pattern_tables, psum_ref,
                                                   ref_tables, staged_times, step_config)
 from gdiet_tpu_torch.pipeline.lr_step import lr_front
 
@@ -275,7 +275,7 @@ def sharded_lr_front(mesh: Mesh, index, cfg, k: int, vt_df1: float, vt_f: float,
         width = codes.shape[1]
         if width not in by_width:
             cw = at_width(cfg, width)
-            maps, pref, _ = _pattern_tables(cw)
+            maps, pref, _ = pattern_tables(cw)
             by_width[width] = cw, _row_tables(
                 mesh, sh, lambda dev: {"maps": torch.from_numpy(maps).to(dev),
                                        "pref": torch.from_numpy(pref).to(dev)})

@@ -6,30 +6,24 @@ stages of mm_map_frag, GDiet-ShortReads/map.c:586-1010): shift inference
 fractional one), cuckoo seed lookup, mm_seed_select, query-occ check, hit
 expansion and per-strand sort, run vote, window geometry and gathers,
 exact/substitution-only shortcuts, DP-row compaction, banded DP and
-antidiagonal backtrack (``ops/extd2.py``: the CUDA kernels on the card, the
-plain versions on the CPU; folded when ``StepConfig.dp_fold``) and output
-packing. The outputs — meta [B, 3+12K] int32 and 2-bit packed ops — are
-byte-identical to ``fused_map_step``'s, so ``native.sr_finish_batch`` and
-``native.pe_finish_batch`` consume them unchanged.
-
-``TorchFusedMapper(dp_fold=True)`` (``GDIET_DP_FOLD=1`` at the entry
-point, ``runtime.py``) folds the DP where the banded lane window cannot
-engage, the JAX step's condition, resolved once per mapper.
-Unlike the JAX step, which never folds off the TPU, the port folds on the
-CPU too, through the plain fold version. ``extd2.route_state_dtype`` picks
-the DP's lane state (int16 or int32; the outputs are bit-equal either way).
+antidiagonal backtrack at full width (``ops/extd2.py``: the CUDA kernels
+on the card, the plain versions on the CPU) and output packing. The
+outputs — meta [B, 3+12K] int32 and 2-bit packed ops (``ops/backtrack.py``)
+— are byte-identical to ``fused_map_step``'s, so ``native.sr_finish_batch``
+and ``native.pe_finish_batch`` consume them unchanged.
+``extd2.route_state_dtype`` picks the DP's lane state (int16 or int32; the
+outputs are bit-equal either way). Unlike the JAX step, this one never
+folds the DP: on the card the full width beat the fold on every batch
+timed (``PERF.md``); the fold stays a kernel-level layout of
+``extd2_batch``.
 
 uint64 values are int64 bit patterns (``gdiet_tpu_torch/u64.py``). TPU
 gather workarounds (one-hot matmul selects, chunk-row window gathers) are
 plain gathers here, with indices clamped explicitly where JAX clamps
 silently. The vote scan runs through ``ops/vote.py``: ``csrc/vote_scan.cu``
-on the card (reading the strand halves in place), the plain loop
-``vote_scan`` below on the CPU (over their concatenation).
-
-``backtrack_antidiag`` is the plain version of ``csrc/backtrack_band.cu``
-for every dirs layout: full width and folded (this step) and the banded
-window of the long-read buckets (``ops/dp_band.py``). ``collect_hits`` is
-the long-read front's too (``pipeline/lr_step.py``).
+on the card (reading the strand halves in place), its plain loop on the
+CPU. ``collect_hits`` is the long-read front's too
+(``pipeline/lr_step.py``).
 
 Under a mesh (``parallel/dist.py``) the step runs once per data row with
 that row's key-range shards of the index in ``tables["shards"]``:
@@ -51,19 +45,13 @@ import numpy as np
 import torch
 
 from gdiet_tpu_torch import config, pattern, u64
-from gdiet_tpu_torch.ops import LaunchCount, extd2, vote
-from gdiet_tpu_torch.ops.dp import CIGAR_DEL, CIGAR_INS, CIGAR_MATCH
-from gdiet_tpu_torch.ops.dp_band import DP_UNROLL, window_base, window_geometry
-from gdiet_tpu_torch.ops.dp_fold import FOLD_GAP, fold_geometry
+from gdiet_tpu_torch.ops import extd2, vote
+from gdiet_tpu_torch.ops.backtrack import pack_ops
 from gdiet_tpu_torch.ops.sketch import sketch_emit
 from gdiet_tpu_torch.u64 import ORD_MAX, U32, U64_MAX, srl
 
 I64 = torch.int64
 I32 = torch.int32
-
-backtrack_calls = LaunchCount()
-vote_calls = LaunchCount()
-
 
 @dataclass(frozen=True)
 class StepConfig:
@@ -97,8 +85,6 @@ class StepConfig:
     cuckoo_c2: int = 0
     cuckoo_nb: int = 0
     dp_frac: float = 1.0
-    dp_fold: bool = False  # folded DP layout (TorchFusedMapper resolves it)
-    vote_budget: int = 0  # >0: the LR front compacts the vote stream to it
     # the front drops the query's over-repeated minimizers itself (the LR
     # mapper); else such a read falls back (the short-read step, held
     # bit-equal to gdiet_tpu's)
@@ -142,7 +128,7 @@ def _max_safe_subs(params) -> int:
     return g - 1
 
 
-def _pattern_tables(cfg: StepConfig):
+def pattern_tables(cfg: StepConfig):
     """Per-shift gather maps [W, Dmax] + prefix-ones table [W+1]."""
     maps = [pattern.gather_map(cfg.Lmax, cfg.pattern, s) for s in range(len(cfg.pattern))]
     Dmax = max(len(m) for m in maps)
@@ -497,89 +483,7 @@ def merge_hits(keys, qpos, valid):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: vote (plain loop over the hit stream)
-# ---------------------------------------------------------------------------
-def vote_scan(keys, qpos, valid, strand, vt_distance, vt_threshold,
-              vt_rec_threshold, K: int) -> dict:
-    """vote (map.c:447-584) over the concatenated fwd/rev hit stream
-    (device_step.py:53-170): top-K candidates kept by the reference's
-    insertion (one backward bubble pass) plus the recovery candidate.
-    ``strand`` [M] int is the per-column strand. The plain version of
-    ``csrc/vote_scan.cu``; ``vote_calls`` counts its calls."""
-    vote_calls.n += 1
-    strand = strand.tolist()
-    B, M = keys.shape
-    dev = keys.device
-
-    def z(dtype, n=None, fill=0):
-        shape = (B,) if n is None else (B, n)
-        return torch.full(shape, fill, dtype=dtype, device=dev)
-
-    head_t, head_valid = z(I64), z(torch.bool)
-    head_str, fq, lq, cnt = z(I32), z(I32), z(I32), z(I32)
-    # the K slots' (score, target, fq, lq, strand), one int64 tensor
-    slots = torch.zeros((B, K, 5), dtype=I64, device=dev)
-    slots[:, :, 0] = -1
-    out_len = z(I32)
-    r_score, r_target, r_fq, r_lq, r_str = z(I32), z(I64), z(I32), z(I32), z(I32)
-
-    def emit(do_emit):
-        nonlocal slots, out_len, r_score, r_target, r_fq, r_lq, r_str
-        passes = do_emit & (cnt > vt_threshold)
-        full = out_len == K
-        insert = passes & ~(full & (slots[:, K - 1, 0] >= cnt))
-        if bool(insert.any()):
-            slot = torch.where(full, K - 1, out_len).to(I64)
-            ins = insert[:, None] & (torch.arange(K, device=dev)[None, :] == slot[:, None])
-            val = torch.stack([cnt.to(I64), head_t, fq.to(I64), lq.to(I64),
-                               head_str.to(I64)], 1)
-            slots = torch.where(ins[:, :, None], val[:, None, :], slots)
-            for kk in range(K - 1, 0, -1):  # the reference's insertion loop
-                swap = (insert & (slots[:, kk, 0] > slots[:, kk - 1, 0]))[:, None]
-                a, b = slots[:, kk - 1].clone(), slots[:, kk].clone()
-                slots[:, kk] = torch.where(swap, a, b)
-                slots[:, kk - 1] = torch.where(swap, b, a)
-        new_len = torch.where(insert & ~full, out_len + 1, out_len)
-        rec = (do_emit & ~passes & (out_len == 0) & (cnt > vt_rec_threshold)
-               & (cnt > r_score))
-        out_len = new_len
-        r_score = torch.where(rec, cnt, r_score)
-        r_target = torch.where(rec, head_t, r_target)
-        r_fq = torch.where(rec, fq, r_fq)
-        r_lq = torch.where(rec, lq, r_lq)
-        r_str = torch.where(rec, head_str, r_str)
-
-    # a column with no valid hit in any row, after another such column (or
-    # first), changes no output: every run has ended and no head is valid,
-    # and the next valid column starts its run afresh
-    live = valid.any(0).tolist()
-    for m in range(M):
-        if not live[m] and (m == 0 or not live[m - 1]):
-            continue
-        t, q, ok, sgn = keys[:, m], qpos[:, m], valid[:, m], strand[m]
-        in_run = head_valid & ok & (head_str == sgn) & u64.ule(t - head_t, vt_distance)
-        ext_f = in_run & (q < fq)
-        new_fq = torch.where(ext_f, q, fq)
-        new_head = torch.where(ext_f, t, head_t)
-        new_lq = torch.where(in_run & (q > lq), q, lq)
-        emit(head_valid & ~in_run)
-        head_t = torch.where(in_run, new_head, t)
-        fq = torch.where(in_run, new_fq, q)
-        lq = torch.where(in_run, new_lq, q)
-        cnt = torch.where(in_run, cnt + 1, 1)
-        head_valid = in_run | ok
-        head_str = torch.where(in_run, head_str, sgn)
-    emit(head_valid)
-    k_score, k_target, k_fq, k_lq, k_str = slots.unbind(2)
-    return {"k_score": k_score.to(I32), "k_target": k_target.contiguous(),
-            "k_fq": k_fq.to(I32), "k_lq": k_lq.to(I32), "k_str": k_str.to(I32),
-            "out_len": out_len,
-            "r_score": r_score, "r_target": r_target, "r_fq": r_fq,
-            "r_lq": r_lq, "r_str": r_str}
-
-
-# ---------------------------------------------------------------------------
-# phases 7-8 helpers: windows, backtrack, packing
+# phases 7-8 helpers: windows, output packing
 # ---------------------------------------------------------------------------
 def window_rows_packed(packed, nmask, fstart, L: int):
     """out[n, j] = reference code at base fstart[n]+j from the 2-bit pack,
@@ -595,105 +499,6 @@ def window_rows_packed(packed, nmask, fstart, L: int):
         nb = (nmask[p >> 3].to(I32) >> (p & 7).to(I32)) & 1
         out = torch.where(nb != 0, 4, out)
     return out.to(torch.uint8)
-
-
-def backtrack_antidiag(dirs, dp_lens, band, Lmax: int, tlens=None,
-                       Lt: int | None = None, fold: bool = False,
-                       band_budget: int | None = None, unroll: int | None = None):
-    """Antidiagonal-synchronous ksw_backtrack (ksw2.h:131-163), as
-    device_step.py:452-585. Ops stream back to front, one column per
-    antidiagonal r = Rpad-1 .. 0 (R padded to a multiple of 8), 255 on idle
-    columns.
-
-    ``fold=False`` reads the dirs [N, R, Wd] of ops/dp.py, or, when
-    ``band_budget``'s lane window engages at (round128(Lt), ``unroll``),
-    the windowed dirs of ops/dp_band.py: lane i of wavefront r at column
-    i - window_base(r // unroll * unroll). ``fold=True`` reads the raw
-    folded layout of ops/dp_fold.py, [(C+1)*H, Nrows, Wd]: candidate n =
-    c*Nrows + k takes wavefront r from slice c*H + r, at lane i + FOLD_GAP
-    for the second half (r >= H). ``calls`` counts the invocations.
-    Returns (ops [N, Rpad] u8, fin_i [N] i32, fin_j [N] i32)."""
-    backtrack_calls.n += 1
-    dev = dirs.device
-    N = dp_lens.shape[0]
-    if Lt is None:
-        Lt = Lmax
-    if fold:
-        H, Wd, T = fold_geometry(Lmax, Lt)
-        Nrows = dirs.shape[1]
-        R = 2 * H
-        n = torch.arange(N, dtype=I64, device=dev)
-        base = ((n // Nrows) * H * Nrows + n % Nrows) * Wd
-        flat = dirs.reshape(-1)
-
-        def dir_bytes(r, i):
-            col = torch.clamp(i + (FOLD_GAP if r >= H else 0), 0, Wd - 1).to(I64)
-            return flat[base + r * Nrows * Wd + col]
-    else:
-        _, R, Wd = dirs.shape
-        T = -(-Lt // 128) * 128
-        U_ = unroll or DP_UNROLL
-        WB = (window_geometry(band_budget, T, U_)
-              if band_budget is not None else None)
-
-        def dir_bytes(r, i):
-            lo = 0 if WB is None else window_base(r // U_ * U_, band_budget, T, WB)
-            col = torch.clamp(i - lo, 0, Wd - 1).to(I64)
-            return torch.gather(dirs[:, r, :], 1, col[:, None])[:, 0]
-    BT_U = 8
-    Rpad = -(-R // BT_U) * BT_U
-    lens = dp_lens.to(I32)
-    tl = lens if tlens is None else tlens.to(I32)
-    w = band.to(I32)
-    i = tl - 1
-    j = lens - 1
-    state = torch.zeros((N,), dtype=I32, device=dev)
-    active = (lens > 0) & (tl > 0)
-    ops = torch.full((N, Rpad), 255, dtype=torch.uint8, device=dev)
-    # no walker starts above antidiagonal tlen+qlen-2: the columns above
-    # the batch's highest start stay idle (255)
-    r_top = min(R - 1, int((tl + lens - 2).max())) if N else -1
-    for r in range(r_top, -1, -1):
-        act = active & (i + j == r)
-        st0 = torch.maximum(torch.clamp(r - lens + 1, min=0), (r - w + 1) >> 1)
-        en0 = torch.minimum(torch.clamp(tl - 1, max=r), (r + w) >> 1)
-        live = (st0 <= en0) & (r < lens + tl - 1) & (lens > 0)
-        off_r = torch.where(live, st0 // 16 * 16, T)
-        off_end_r = torch.where(live, torch.clamp((en0 + 16) // 16 * 16 - 1, max=T - 1), -1)
-        force = torch.where(i > off_end_r, 1, torch.where(i < off_r, 2, -1))
-        tmp = dir_bytes(r, i).to(I32)
-        tmp = torch.where(force >= 0, 0, tmp)
-        nstate = torch.where(state == 0, tmp & 7,
-                             torch.where(((tmp >> (state + 2)) & 1) != 0, state, 0))
-        nstate = torch.where(nstate == 0, tmp & 7, nstate)
-        nstate = torch.where(force >= 0, force, nstate)
-        op = torch.where(nstate == 0, CIGAR_MATCH,
-                         torch.where((nstate == 1) | (nstate == 3), CIGAR_DEL, CIGAR_INS))
-        di = ((nstate == 0) | (nstate == 1) | (nstate == 3)).to(I32)
-        dj = ((nstate == 0) | (nstate == 2) | (nstate == 4)).to(I32)
-        ops[:, Rpad - 1 - r] = torch.where(act, op, 255).to(torch.uint8)
-        i = torch.where(act, i - di, i)
-        j = torch.where(act, j - dj, j)
-        state = torch.where(act, nstate, state)
-        active = active & (i >= 0) & (j >= 0)
-    return ops, i, j
-
-
-def pack_ops(ops):
-    """[N, S] op codes (0/1/2, 255 pad) -> [N, S/4] u8, 2 bits per op."""
-    N, S = ops.shape
-    v = torch.clamp(ops.to(I32), max=3).reshape(N, S // 4, 4)
-    wts = torch.tensor([1, 4, 16, 64], dtype=I32, device=ops.device)
-    return (v * wts).sum(2).to(torch.uint8)
-
-
-def unpack_ops(packed: np.ndarray) -> np.ndarray:
-    """Host inverse of pack_ops: [N, S/4] u8 -> [N, S] u8 with 3 = pad."""
-    N, SB = packed.shape
-    out = np.empty((N, SB, 4), np.uint8)
-    for j in range(4):
-        out[:, :, j] = (packed >> (2 * j)) & 3
-    return out.reshape(N, SB * 4)
 
 
 PACK_B = ("shift", "extracted", "fallback")
@@ -843,8 +648,8 @@ def fused_map_step(codes, lens, tables: dict, cfg: StepConfig,
     _mark("windows")
 
     score2, dirs, _, _ = extd2.extd2_batch(
-        qb2, tb2, len2, band2, cfg.params, L, fold=cfg.dp_fold,
-        state_dtype=extd2.route_state_dtype(cfg.params, L, fold=cfg.dp_fold))
+        qb2, tb2, len2, band2, cfg.params, L,
+        state_dtype=extd2.route_state_dtype(cfg.params, L))
     _mark("dp")
     rank_c = torch.clamp(rank, 0, N2 - 1)
     score = torch.where(need, score2[rank_c], 0).reshape(B, K)
@@ -853,8 +658,7 @@ def fused_map_step(codes, lens, tables: dict, cfg: StepConfig,
     score = torch.where(exact, (qlen * cfg.match_a).to(I32), score)
 
     # SR windows have tlen = qlen
-    ops2, fin_i2, fin_j2 = extd2.backtrack_band(dirs, len2, len2, band2, L, L,
-                                                fold=cfg.dp_fold)
+    ops2, fin_i2, fin_j2 = extd2.backtrack_band(dirs, len2, len2, band2, L, L)
     fin_i = torch.where(need, fin_i2[rank_c], 0)
     fin_j = torch.where(need, fin_j2[rank_c], 0)
     pad = (-ops2.shape[1]) % 4
@@ -897,7 +701,7 @@ def ref_tables(index, cfg: StepConfig, dev) -> dict:
     """The step's reference tables on ``dev``: the 2-bit packed reference
     and its N mask, sequence offsets and lengths, the pattern tables.
     ``.to()`` is a no-op where the index already lives."""
-    maps, pref, _ = _pattern_tables(cfg)
+    maps, pref, _ = pattern_tables(cfg)
     packed, nmask = index.device_packed()
     return {
         "ref_codes": packed.to(dev),
@@ -919,16 +723,12 @@ class TorchFusedMapper:
     (device_step.py:1396-1517), on an explicit device."""
 
     def __init__(self, index, mo, Lmax: int = 256, S: int = 160, S2: int = 64,
-                 A: int = 2048, dp_frac: float = 1.0, device=None,
-                 dp_fold: bool = False):
+                 A: int = 2048, dp_frac: float = 1.0, device=None):
         self.device = torch.device(device if device is not None else index.device)
         cfg = step_config(index, mo, Lmax, S, S2, A)
         tkv, c1, c2, nb = index.device_cuckoo_kv()
-        # dp_fold folds the DP where the banded lane window cannot engage
-        # (device_step.py:1325-1328); resolved once per mapper
-        fold = dp_fold and window_geometry(cfg.bw_max, -(-Lmax // 128) * 128) is None
         self.cfg = dataclass_replace(cfg, dp_frac=dp_frac, cuckoo_c1=c1, cuckoo_c2=c2,
-                                     cuckoo_nb=nb, dp_fold=fold)
+                                     cuckoo_nb=nb)
         dev = self.device
         self.tables = {**ref_tables(index, self.cfg, dev), "cuckoo": tkv.to(dev),
                        "positions": index.device_positions().to(dev)}

@@ -32,12 +32,12 @@ oracle read costs the host ~30 ms/kbp). The default budgets hold such a
 read of either preset: a seed budget of 4,096 (~1,500 minimizers on a
 30 kb HiFi read's diet half at k 19, w 19; ~2,700 at ONT's k 15, w 10), a
 shift budget of 1,024 (~300 shift seeds in the first fifth of a 30 kb HiFi
-read at ``-i 0.2``, over the 256 of a smaller budget), a hit budget of
-8,192, and no vote compaction (one to 4,096 columns sends back reads in
-repeats; it saves the front no time). A read that overflows one goes back
-to the oracle, which is exact (``stats["front_fallback_reads"]``). The
-front takes a batch's reads longest first, in calls of at most
-``FRONT_BASES`` padded bases (1,024 reads at 32,768 bp), each call as wide
+read at ``-i 0.2``, over the 256 of a smaller budget) and a hit budget of
+8,192; the votes read every hit the front keeps. A read that overflows
+one goes back to the oracle, which is exact
+(``stats["front_fallback_reads"]``). The front takes a batch's reads
+longest first, in calls of at most ``FRONT_BASES`` padded bases (1,024
+reads at 32,768 bp), each call as wide
 as ``front_width`` of its longest read: the power of two that holds it,
 512 at least and the envelope at most. So a batch of 4 kb reads, or one
 read of the API, runs at 4,096 and not at 32,768, with its seed budgets
@@ -85,12 +85,13 @@ import torch
 from gdiet_tpu_torch import config, debug, native
 from gdiet_tpu_torch.io import sam as samio
 from gdiet_tpu_torch.ops import extd2
+from gdiet_tpu_torch.ops.backtrack import pack_ops
 from gdiet_tpu_torch.ops.dp_band import LR_UNROLL, window_geometry
 from gdiet_tpu_torch.oracle import align as oal
 from gdiet_tpu_torch.oracle import longread as olr
 from gdiet_tpu_torch.parallel.dist import sharded_lr_front
 from gdiet_tpu_torch.pipeline import lr_finish
-from gdiet_tpu_torch.pipeline.device_step import _pattern_tables, at_width, pack_ops, step_config
+from gdiet_tpu_torch.pipeline.device_step import at_width, pattern_tables, step_config
 from gdiet_tpu_torch.pipeline.lr_step import lr_front, unpack_lr_meta
 from gdiet_tpu_torch.utils.profile import PROFILE
 
@@ -118,7 +119,7 @@ class LongReadMapper:
 
     def __init__(self, index, mo, max_read_len: int = 32768,
                  seed_budget: int = 4096, shift_seed_budget: int = 1024,
-                 hit_budget: int = 8192, vote_budget: int = 0,
+                 hit_budget: int = 8192,
                  n_threads: int = 1, device=None, mesh=None):
         native.require_native()
         self.mi = index
@@ -146,8 +147,7 @@ class LongReadMapper:
         # LR voting keeps vt_nb_loc candidates (map.c:1310); the front
         # applies mm_seed_mz_flt itself, so a read with a repeated
         # minimizer stays on the device
-        cfg = dataclass_replace(cfg, K=mo.vt_nb_loc, vote_budget=vote_budget,
-                                q_occ_drop=True)
+        cfg = dataclass_replace(cfg, K=mo.vt_nb_loc, q_occ_drop=True)
         if mesh is not None:
             self.cfg = cfg
             self._mesh_front = sharded_lr_front(
@@ -305,7 +305,7 @@ class LongReadMapper:
         once a width."""
         if width not in self._widths:
             cfg = at_width(self.cfg, width)
-            maps, pref, _ = _pattern_tables(cfg)
+            maps, pref, _ = pattern_tables(cfg)
             self._widths[width] = cfg, {**self.tables,
                                         "maps": torch.from_numpy(maps).to(self.device),
                                         "pref": torch.from_numpy(pref).to(self.device)}

@@ -27,11 +27,11 @@ import numpy as np
 
 from gdiet_tpu_torch import native
 from gdiet_tpu_torch.config import MM_F_NO_PRINT_2ND, MM_F_SR
+from gdiet_tpu_torch.ops.backtrack import unpack_ops
 from gdiet_tpu_torch.ops.dp import cigars_from_ops
 from gdiet_tpu_torch.oracle import align as oal
 from gdiet_tpu_torch.oracle import longread as olr
 from gdiet_tpu_torch.oracle.pipeline import set_sam_params
-from gdiet_tpu_torch.pipeline.device_step import unpack_ops
 
 
 def rle_runs(op_rows, fin_i, fin_j, qlens, max_runs: int):

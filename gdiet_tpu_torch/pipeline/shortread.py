@@ -43,10 +43,10 @@ from gdiet_tpu_torch.io.fastx import SeqRecord
 from gdiet_tpu_torch.oracle import align as oal
 from gdiet_tpu_torch.oracle import hit as oracle_hit
 from gdiet_tpu_torch.oracle import pipeline as oracle_pipeline
+from gdiet_tpu_torch.ops.backtrack import unpack_ops
 from gdiet_tpu_torch.ops.dp import cigars_from_ops
 from gdiet_tpu_torch.parallel.dist import ShardedFused
-from gdiet_tpu_torch.pipeline.device_step import (TorchFusedMapper,
-                                                  unpack_ops, unpack_outputs)
+from gdiet_tpu_torch.pipeline.device_step import TorchFusedMapper, unpack_outputs
 from gdiet_tpu_torch.utils.profile import PROFILE, Stage
 
 
@@ -79,14 +79,14 @@ class ShortReadMapper:
                  hit_budget: int = 2048, dp_frac: float = 0.5, mesh=None,
                  retry_hit_budget: int = 2048, retry_batch: int = 512,
                  n_threads: int = 1, profile_stages: bool = False,
-                 device=None, dp_fold: bool = False):
+                 device=None):
         self.native = native.require_native()
         self.mi = index
         self.mo = mo
         self.mid_occ = index.derive_mid_occ(mo)
         self.Lmax = max_read_len
         self.profile_stages = profile_stages
-        if mesh is not None:  # the sharded step never folds the DP
+        if mesh is not None:
             self.fused = ShardedFused(
                 index, mo, mesh, Lmax=max_read_len, S=seed_budget,
                 S2=shift_seed_budget, A=hit_budget, dp_frac=dp_frac)
@@ -95,7 +95,7 @@ class ShortReadMapper:
             self.device = torch.device(device if device is not None else index.device)
             self.fused = TorchFusedMapper(
                 index, mo, Lmax=max_read_len, S=seed_budget, S2=shift_seed_budget,
-                A=hit_budget, dp_frac=dp_frac, dp_fold=dp_fold, device=self.device)
+                A=hit_budget, dp_frac=dp_frac, device=self.device)
         self._retry_args = (seed_budget, shift_seed_budget, retry_hit_budget)
         self.retry_batch = retry_batch
         self._retry_fused = None
@@ -126,8 +126,7 @@ class ShortReadMapper:
         if self._retry_fused is None:
             self._retry_fused = TorchFusedMapper(
                 self.mi, self.mo, Lmax=self.Lmax, S=min(4 * S, 256), S2=S2,
-                A=max(A2, cfg.A), dp_frac=1.0, dp_fold=cfg.dp_fold,
-                device=self.device)
+                A=max(A2, cfg.A), dp_frac=1.0, device=self.device)
         return self._retry_fused
 
     def _retry_batch_regs(self, reads_sub):

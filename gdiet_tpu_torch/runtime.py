@@ -121,11 +121,11 @@ def _report(verbose: int, cli_line: str, t0: float, counters: dict | None = None
 
 def run_sr_sam(mi, mo, query: str, out_path: str | None, n_threads: int,
                verbose: int, cli_line: str, t0: float, device,
-               batch_reads: int = 8192, dp_fold: bool = False, mesh=None) -> int:
+               batch_reads: int = 8192, mesh=None) -> int:
     """SR + SAM path (gdiet_tpu/runtime.py:192-335): fixed batch shape,
     tail batch padded, Lmax from the first batch, re-tier after enough
-    length-overflow reads. ``dp_fold``: ``TorchFusedMapper``'s; ``mesh``:
-    ``ShortReadMapper``'s; ``verbose >= 4`` adds the five-stage profile."""
+    length-overflow reads. ``mesh``: ``ShortReadMapper``'s; ``verbose >=
+    4`` adds the five-stage profile."""
     from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
 
     rdr = read_fastx(query)
@@ -152,7 +152,7 @@ def run_sr_sam(mi, mo, query: str, out_path: str | None, n_threads: int,
                 mi, mo, max_read_len=lmax, seed_budget=32 * scale,
                 shift_seed_budget=16 * scale, hit_budget=64 * scale,
                 dp_frac=0.3125, n_threads=n_threads, device=device,
-                dp_fold=dp_fold, mesh=mesh, profile_stages=verbose >= 4)
+                mesh=mesh, profile_stages=verbose >= 4)
 
         Lmax = _round16(max(r.l_seq for r in first))
         mapper = make_mapper(Lmax)
@@ -216,7 +216,7 @@ def run_sr_sam(mi, mo, query: str, out_path: str | None, n_threads: int,
 
 def run_sr_pe_sam(mi, mo, q1: str, q2: str, out_path: str | None,
                   n_threads: int, verbose: int, cli_line: str, t0: float,
-                  device, batch_pairs: int = 4096, dp_fold: bool = False) -> int:
+                  device, batch_pairs: int = 4096) -> int:
     """Paired-end SR + SAM path (gdiet_tpu/runtime.py:338-430): both ends
     of each pair map as fused-step rows; pairing and the mate-field records
     run in the native ``pe_finish_batch``. Fixed batch of P pairs (the next
@@ -248,8 +248,7 @@ def run_sr_pe_sam(mi, mo, q1: str, q2: str, out_path: str | None,
         mapper = ShortReadMapper(
             mi, mo, max_read_len=Lmax, seed_budget=32 * scale,
             shift_seed_budget=16 * scale, hit_budget=64 * scale,
-            dp_frac=0.3125, n_threads=n_threads, device=device,
-            dp_fold=dp_fold)
+            dp_frac=0.3125, n_threads=n_threads, device=device)
         counter = [0]
 
         def batches():
@@ -280,21 +279,13 @@ def run_sr_pe_sam(mi, mo, q1: str, q2: str, out_path: str | None,
     return 0
 
 
-
-
-def dp_fold_env() -> bool:
-    """``GDIET_DP_FOLD=1`` folds the short-read DP, as it does in gdiet_tpu."""
-    return os.environ.get("GDIET_DP_FOLD", "0") == "1"
-
-
 def _make_mapper(mi, mo, variant: str, max_read_len: int | None, device,
                  n_threads: int = 1, mesh=None):
     if variant == "sr":
         from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
 
         return ShortReadMapper(mi, mo, max_read_len=max_read_len or 256,
-                               n_threads=n_threads, device=device,
-                               dp_fold=dp_fold_env(), mesh=mesh)
+                               n_threads=n_threads, device=device, mesh=mesh)
     from gdiet_tpu_torch.pipeline.longread import LongReadMapper
 
     return LongReadMapper(mi, mo, n_threads=n_threads, device=device, mesh=mesh)
@@ -634,12 +625,10 @@ def _run_mapping(io, mo, variant: str, target: str, queries: list, device, fnw,
     path = route(mo, variant, queries, max_read_len)
     if path == "sr_se":
         return run_sr_sam(mi, mo, queries[0], out_path, n_threads, verbose,
-                          cli_line, t0, device, dp_fold=dp_fold_env(),
-                          mesh=_mesh(mo, device, verbose, t0))
+                          cli_line, t0, device, mesh=_mesh(mo, device, verbose, t0))
     if path == "sr_pe":
         return run_sr_pe_sam(mi, mo, queries[0], queries[1], out_path,
-                             n_threads, verbose, cli_line, t0, device,
-                             dp_fold=dp_fold_env())
+                             n_threads, verbose, cli_line, t0, device)
     return run_generic(mi, mo, variant, queries, out_path, n_threads, verbose,
                        cli_line, t0, device, max_read_len,
                        mesh=_mesh(mo, device, verbose, t0))

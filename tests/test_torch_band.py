@@ -35,8 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from gdiet_tpu_torch.ops import dp, dp_band, extd2
-from gdiet_tpu_torch.pipeline import device_step
+from gdiet_tpu_torch.ops import backtrack, dp, dp_band, extd2
 from gdiet_tpu_torch.testing import torch_threads
 
 
@@ -191,10 +190,10 @@ def test_plain_band_matches_pallas(pallas, case):
 def test_band_backtrack_matches_jax(pallas, case):
     _, _, Lmax, Lt, bb, U = CASES[case]
     (Q, T, lens, band, tlens), ref, ref_bt = pallas[case]
-    calls = device_step.backtrack_calls.n
+    calls = backtrack.backtrack_calls.n
     got = extd2.backtrack_band(torch.from_numpy(ref[1]), *_t(lens, tlens, band),
                                Lmax, Lt, band_budget=bb, unroll=U)
-    assert device_step.backtrack_calls.n == calls + 1
+    assert backtrack.backtrack_calls.n == calls + 1
     for name, a, b in zip(("ops", "fin_i", "fin_j"), got, ref_bt):
         np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
 
@@ -231,7 +230,7 @@ def test_unwindowed_route_is_full_width():
         assert torch.equal(a, b)
     bt = extd2.backtrack_band(got[1], *_t(lens, tlens, band), Lmax, Lt,
                               band_budget=bb, unroll=8)
-    ref_bt = device_step.backtrack_antidiag(ref[1], args[2], args[3], Lmax,
+    ref_bt = backtrack.backtrack_antidiag(ref[1], args[2], args[3], Lmax,
                                             tlens=torch.from_numpy(tlens), Lt=Lt)
     for a, b in zip(bt, ref_bt):
         assert torch.equal(a, b)
@@ -376,7 +375,7 @@ def test_cuda_band_kernels_match_plain(bb, Lmax, Lt, kind, N):
     bt = extd2.backtrack_band(got[1], args[2], tl, args[3], Lmax, Lt, band_budget=bb, unroll=8)
     torch.cuda.synchronize()
     assert extd2.backtrack_launches.n == launches + 1
-    ref_bt = device_step.backtrack_antidiag(got[1], args[2], args[3], Lmax, tlens=tl,
+    ref_bt = backtrack.backtrack_antidiag(got[1], args[2], args[3], Lmax, tlens=tl,
                                             Lt=Lt, band_budget=bb, unroll=8)
     for a, b in zip(ref_bt, bt):
         assert torch.equal(a, b)

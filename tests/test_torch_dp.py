@@ -164,7 +164,7 @@ def test_cuda_kernel_and_backtrack_match_plain(N, Lmax, Lt, kind):
     chunk."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
-    from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
+    from gdiet_tpu_torch.ops.backtrack import backtrack_antidiag
 
     prm = (2, 8, 12, 2, 24, 1)
     Q, T, lens, tlens, band = _cases(19, N=N, Lmax=Lmax, Lt=Lt)

@@ -22,9 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from gdiet_tpu_torch.ops import dp, dp_band, dp_fold, extd2
-from gdiet_tpu_torch.pipeline import device_step
-from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
+from gdiet_tpu_torch.ops import backtrack, dp, dp_band, dp_fold, extd2
+from gdiet_tpu_torch.ops.backtrack import backtrack_antidiag
 from gdiet_tpu_torch.testing import torch_threads
 
 
@@ -147,10 +146,10 @@ def test_fold_backtrack_band_matches_jax(pallas, case):
     _, _, Lmax, Lt = CASES[case]
     (_, _, lens, band, tlens), ref, bt = pallas[case]
     tl = lens if tlens is None else tlens
-    calls, launches = device_step.backtrack_calls.n, extd2.backtrack_launches.n
+    calls, launches = backtrack.backtrack_calls.n, extd2.backtrack_launches.n
     got = extd2.backtrack_band(torch.from_numpy(ref[1].copy()), _torch(lens), _torch(tl),
                                _torch(band), Lmax, Lt, fold=True)
-    assert device_step.backtrack_calls.n == calls + 1
+    assert backtrack.backtrack_calls.n == calls + 1
     assert extd2.backtrack_launches.n == launches
     for name, a, b in zip(("ops", "fin_i", "fin_j"), bt, got):
         np.testing.assert_array_equal(b.numpy(), a, err_msg=name)

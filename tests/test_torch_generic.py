@@ -32,7 +32,6 @@ from gdiet_tpu_torch.index import build_index
 from gdiet_tpu_torch.io import sam as samio
 from gdiet_tpu_torch.io.fastx import read_fastx
 from gdiet_tpu_torch.ops import vote
-from gdiet_tpu_torch.pipeline import device_step
 from gdiet_tpu_torch.pipeline import shortread
 from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
 from gdiet_tpu_torch.testing import sam_body, torch_threads
@@ -91,10 +90,10 @@ def test_map_batch_golden(ref, reads, golden, lmax):
     mi = build_index([(r.name, r.seq) for r in read_fastx(str(DATA / ref))], io_, "cpu")
     mapper = ShortReadMapper(mi, mo, max_read_len=lmax, device="cpu")
     recs = list(read_fastx(str(DATA / reads)))
-    calls = device_step.vote_calls.n
+    calls = vote.vote_calls.n
     assert _sam(recs, mapper.map_batch(recs), mi, mo) == sam_body(DATA / golden)
     # on CPU tensors the vote runs the plain loop, never the kernel
-    assert device_step.vote_calls.n > calls and vote.launches.n == 0
+    assert vote.vote_calls.n > calls and vote.launches.n == 0
 
 
 def test_map_stream_sub_batches(monkeypatch):
@@ -111,10 +110,10 @@ def test_map_stream_sub_batches(monkeypatch):
     monkeypatch.setattr(shortread, "sub_batch_reads", lambda cfg: 16)
     mapper = ShortReadMapper(mi, mo, device="cpu")
     recs = list(read_fastx(str(DATA / "reads.fq")))
-    calls = device_step.vote_calls.n
+    calls = vote.vote_calls.n
     out = list(mapper.map_stream(iter([recs[:20], [], recs[20:]])))
     assert [len(b) for b in out] == [20, 0, 30]
-    assert device_step.vote_calls.n - calls == 4  # 16 + 4, none, 16 + 14
+    assert vote.vote_calls.n - calls == 4  # 16 + 4, none, 16 + 14
     assert _sam(recs, [r for b in out for r in b], mi, mo) == sam_body(DATA / "golden.sam")
 
 

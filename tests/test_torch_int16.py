@@ -407,7 +407,7 @@ def test_cuda_int16_fold_backtrack_reads_its_split():
     the dirs and walks both to the same ops as the plain folded walk."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
-    from gdiet_tpu_torch.pipeline.device_step import backtrack_antidiag
+    from gdiet_tpu_torch.ops.backtrack import backtrack_antidiag
 
     rng = np.random.default_rng(12)
     N, L = 200, 900

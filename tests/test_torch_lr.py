@@ -2,10 +2,9 @@
 
 - The LR device front: the port's ``lr_front`` packed meta [B, 4 + 8K + 4 +
   16] equals JAX's ``lr_front`` under ``jax.jit`` for the HiFi fixture, at
-  the budgets of ``tests/test_longread_device.py``, with and without the
-  ``vote_budget`` compaction. Both map against the same ``DietIndex``,
-  carried across with ``TorchIndex.from_numpy``; each side builds its
-  options with its own ``options_for``.
+  the budgets of ``tests/test_longread_device.py``. Both map against the
+  same ``DietIndex``, carried across with ``TorchIndex.from_numpy``; each
+  side builds its options with its own ``options_for``.
 - The slice: ``python -m gdiet_tpu_torch --device cpu`` with the fixture's
   HiFi and ONT arguments (``tests/data/make_lr_fixtures.py``) on the first
   8 reads of ``reads_lr.fq`` writes the reference binary's golden records
@@ -55,8 +54,7 @@ def hifi_index(data_dir):
     return build_index(refs, io_), mo
 
 
-@pytest.mark.parametrize("vote_budget", [0, 64])
-def test_lr_front_matches_jax(data_dir, hifi_index, vote_budget):
+def test_lr_front_matches_jax(data_dir, hifi_index):
     from gdiet_tpu.pipeline.longread import LongReadMapper as JaxMapper
     from gdiet_tpu_torch.config import options_for
     from gdiet_tpu_torch.io.fastx import read_fastx
@@ -66,17 +64,15 @@ def test_lr_front_matches_jax(data_dir, hifi_index, vote_budget):
     _, mo = options_for("map-hifi", variant="lr", **HIFI)
     reads = list(read_fastx(str(data_dir / "reads_lr.fq")))
     lens = np.array([r.l_seq for r in reads], np.int64)
-    jax_front = JaxMapper(jmi, jmo, vote_budget=vote_budget, **BUDGETS)
+    jax_front = JaxMapper(jmi, jmo, **BUDGETS)
     ref = np.asarray(jax_front._dispatch_front(reads, lens)[3]["meta"])
-    mapper = LongReadMapper(TorchIndex.from_numpy(jmi, "cpu"), mo,
-                            vote_budget=vote_budget, device="cpu", **BUDGETS)
+    mapper = LongReadMapper(TorchIndex.from_numpy(jmi, "cpu"), mo, device="cpu",
+                            **BUDGETS)
     meta = mapper._dispatch_front(reads, lens)[1].numpy()
     assert meta.shape == ref.shape == (len(reads), 4 + 8 * mo.vt_nb_loc + 4 + 16)
     np.testing.assert_array_equal(meta, ref)
     assert (meta[:, 3] > 0).sum() > len(reads) // 2  # candidates kept
     assert (meta[:, -19] > 0).sum() > 8  # round-2 head windows open
-    if vote_budget:
-        assert meta[:, 0].any()  # the compaction overflowed some reads
 
 
 @pytest.fixture(scope="module")

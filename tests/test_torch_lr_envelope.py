@@ -236,7 +236,7 @@ def test_front_matches_jax_at_the_default_envelope(hifi, mapped):
     reads = hifi["reads"]
     lens = np.array([r.l_seq for r in reads], np.int64)
     jax_front = JaxMapper(jmi, jmo, max_read_len=32768, seed_budget=4096,
-                          shift_seed_budget=1024, hit_budget=8192, vote_budget=0)
+                          shift_seed_budget=1024, hit_budget=8192)
     ref = np.asarray(jax_front._dispatch_front(reads, lens)[3]["meta"])
     meta = mapped["mapper"]._dispatch_front(reads, lens)[1].numpy()
     assert meta.shape == ref.shape

@@ -28,11 +28,11 @@ import pytest
 import torch
 
 from gdiet_tpu_torch.config import options_for
+from gdiet_tpu_torch.ops.backtrack import pack_ops
 from gdiet_tpu_torch.ops.dp import cigars_from_ops
 from gdiet_tpu_torch.oracle import align as oal
 from gdiet_tpu_torch.oracle import longread as olr
 from gdiet_tpu_torch.pipeline import lr_finish
-from gdiet_tpu_torch.pipeline.device_step import pack_ops
 from gdiet_tpu_torch.testing import torch_threads
 
 SEED = 2_147_483_711

@@ -215,9 +215,9 @@ def test_mesh_sam(tiny, mesh_shape):
     jax_mapper = JaxMapper(mi, mo, mesh=jdist.make_mesh(*mesh_shape), **kw)
     want = b"".join(jax_mapper.map_stream_sam(iter([reads])))
     meshed = ShortReadMapper(ti, sr_mo(), mesh=cpu_mesh(*mesh_shape), device="cpu", **kw)
-    calls = tds.vote_calls.n
+    calls = vote.vote_calls.n
     got = b"".join(bytes(b) for b in meshed.map_stream_sam(iter([reads])))
-    assert tds.vote_calls.n > calls
+    assert vote.vote_calls.n > calls
     single = ShortReadMapper(ti, sr_mo(), device="cpu", **kw)
     assert got == want == b"".join(bytes(b) for b in single.map_stream_sam(iter([reads])))
     assert got.count(b"\n") >= len(reads)

@@ -2,13 +2,14 @@
 
 An AST walk over every module of ``gdiet_tpu_torch`` (``parallel/``
 included) and over ``chip_smoke.py`` finds no import of ``jax`` or
-``gdiet_tpu`` (comments and docstrings may name the JAX files). The
-single-end (also on a ``--mesh 2x2`` virtual CPU mesh), paired-end (folded
-DP), generic (``--MD --cs`` SAM, ``-c`` PAF) and long-read CLIs then run in
-a subprocess with ``sys.modules["jax"]``,
-``["jaxlib"]`` and ``["gdiet_tpu"]`` set to None before anything else, so
-any such import on their path would fail, and each writes the same SAM as
-the port's run in this process, where both packages are loaded.
+``gdiet_tpu`` (comments and docstrings may name the JAX files), and one
+over ``gdiet_tpu_torch/ops/`` no import of the layers above the kernels.
+The single-end (also on a ``--mesh 2x2`` virtual CPU mesh), paired-end,
+generic (``--MD --cs`` SAM, ``-c`` PAF) and long-read CLIs then run in a
+subprocess with ``sys.modules["jax"]``, ``["jaxlib"]`` and
+``["gdiet_tpu"]`` set to None before anything else, so any such import on
+their path would fail, and each writes the same SAM as the port's run in
+this process, where both packages are loaded.
 """
 
 import ast
@@ -78,25 +79,47 @@ def test_port_imports_neither_jax_nor_gdiet_tpu():
     assert not bad, bad
 
 
-def _run_without_jax(args, env=None):
+def _imports_resolved(path: pathlib.Path) -> list:
+    """Every module ``path`` imports, at any depth (inside functions too),
+    relative imports resolved, and each name of a ``from X import name``
+    as ``X.name`` besides ``X``."""
+    pkg = ".".join(path.relative_to(ROOT).with_suffix("").parts[:-1])
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = pkg.rsplit(".", node.level - 1)[0] if node.level else ""
+            mod = ".".join(p for p in (base, node.module) if p)
+            names += [mod] + [f"{mod}.{a.name}" for a in node.names]
+    return names
+
+
+def test_ops_import_nothing_above_them():
+    """The kernel layer stands on its own: no module under
+    ``gdiet_tpu_torch/ops/`` imports the layers that call it."""
+    files = sorted((ROOT / "gdiet_tpu_torch" / "ops").glob("*.py"))
+    assert ROOT / "gdiet_tpu_torch" / "ops" / "vote.py" in files
+    above = tuple(f"gdiet_tpu_torch.{m}" for m in ("pipeline", "parallel", "runtime",
+                                                   "api", "cli"))
+    bad = [(f.name, n) for f in files for n in _imports_resolved(f)
+           if any(n == a or n.startswith(a + ".") for a in above)]
+    assert not bad, bad
+
+
+def _run_without_jax(args):
     # one OpenMP thread, as the in-process runs (see testing.torch_threads)
-    env = {**(env or os.environ), "OMP_NUM_THREADS": "1"}
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
     res = subprocess.run([sys.executable, "-c", SCRIPT, *args], cwd=ROOT,
                          capture_output=True, text=True, timeout=600, env=env)
     assert res.returncode == 0, res.stderr[-4000:]
     assert "NOJAX_OK" in res.stdout
 
 
-def _run_here(args, out, env=None):
+def _run_here(args, out):
     """The same CLI in this process, where JAX and gdiet_tpu are loaded."""
     assert "gdiet_tpu" in sys.modules and "jax" in sys.modules
-    saved = dict(os.environ)
-    os.environ.update(env or {})
-    try:
-        assert cli.main([*args, "-o", str(out)]) == 0
-    finally:
-        os.environ.clear()
-        os.environ.update(saved)
+    assert cli.main([*args, "-o", str(out)]) == 0
     return sam_body(out)
 
 
@@ -119,19 +142,18 @@ def test_mesh_cli_without_jax(data_dir, tmp_path):
 
 
 def test_pe_cli_without_jax(data_dir, tmp_path):
-    """The PE CLI with GDIET_DP_FOLD=1: R1 records match the reference's
+    """The PE CLI: R1 records match the reference's
     single-end golden except for what pairing rewrites (FLAG PE bits,
     MAPQ, mate columns), as tests/test_pe_parity.py checks them."""
     out = tmp_path / "pe.sam"
     inputs = [str(data_dir / "ref_pe.fa"), str(data_dir / "reads_pe_1.fq"),
               str(data_dir / "reads_pe_2.fq")]
-    fold = {"GDIET_DP_FOLD": "1"}
-    _run_without_jax([*ARGS, "-o", str(out), *inputs], env={**os.environ, **fold})
+    _run_without_jax([*ARGS, "-o", str(out), *inputs])
     n_checked, bad = r1_vs_single_end(sam_body(out),
                                       sam_body(data_dir / "golden_pe_r1.sam"))
     assert not bad, bad[:5]
     assert n_checked > 200
-    assert sam_body(out) == _run_here([*ARGS, *inputs], tmp_path / "here.sam", fold)
+    assert sam_body(out) == _run_here([*ARGS, *inputs], tmp_path / "here.sam")
 
 
 @pytest.mark.parametrize("opts,suffix", [(["-a", "--MD", "--cs"], "sam"), (["-c"], "paf")])

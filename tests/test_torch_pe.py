@@ -2,9 +2,8 @@
 
 ``python -m gdiet_tpu_torch --device cpu`` on the PE fixture (the ARGS of
 ``tests/test_pe_fast.py``) must write the SAM body that ``gdiet_tpu.cli``
-writes, with ``GDIET_DP_FOLD`` unset and set to 1 (the port folds on the
-CPU through its plain fold version; JAX on the CPU never folds, and the
-fold is SAM-identical), with the preset's fractional ``-i``, and across
+writes, with one and with three threads (the full-width DP: the port's
+PE path never folds), with the preset's fractional ``-i``, and across
 several batches with a padded tail and trailing records without a mate.
 """
 
@@ -17,7 +16,7 @@ from gdiet_tpu import native
 from gdiet_tpu.cli import main as jax_main
 from gdiet_tpu_torch import runtime
 from gdiet_tpu_torch.cli import main as port_main
-from gdiet_tpu_torch.ops import dp_fold
+from gdiet_tpu_torch.ops import dp, dp_fold
 from gdiet_tpu_torch.testing import sam_body as _body, torch_threads
 
 
@@ -69,22 +68,19 @@ def _port(tmp_path, args, inputs=INPUTS):
     return _body(out)
 
 
-@pytest.mark.parametrize("fold", [None, "1"])
-def test_pe_cli_matches_jax(jax_sam, tmp_path, monkeypatch, fold):
-    if fold is None:
-        monkeypatch.delenv("GDIET_DP_FOLD", raising=False)
-    else:
-        monkeypatch.setenv("GDIET_DP_FOLD", fold)
-    calls = dp_fold.calls.n
-    mine = _port(tmp_path, ARGS)
-    assert (dp_fold.calls.n > calls) == (fold == "1")
+@pytest.mark.parametrize("threads", ["1", "3"])
+def test_pe_cli_matches_jax(jax_sam, tmp_path, threads):
+    """The port on one or three threads writes what JAX writes on one."""
+    args = [*ARGS[:ARGS.index("-t") + 1], threads, *ARGS[ARGS.index("-t") + 2:]]
+    calls, fold_calls = dp.calls.n, dp_fold.calls.n
+    mine = _port(tmp_path, args)
+    assert dp.calls.n > calls and dp_fold.calls.n == fold_calls
     ref = jax_sam(ARGS)
     assert len(ref) >= 600 and mine == ref
 
 
-def test_pe_cli_frac_seeds_matches_jax(jax_sam, tmp_path, monkeypatch):
+def test_pe_cli_frac_seeds_matches_jax(jax_sam, tmp_path):
     """Without -i 2 the sr preset's -i 0.1 takes the fractional branch."""
-    monkeypatch.delenv("GDIET_DP_FOLD", raising=False)
     assert _port(tmp_path, FRAC_ARGS) == jax_sam(FRAC_ARGS)
 
 
@@ -92,7 +88,6 @@ def test_pe_batches_and_unpaired_tail(tmp_path, monkeypatch):
     """Batches of 64 pairs (the last one padded) and an R2 file 37 records
     shorter than R1. Both runtimes stop pairing at the first R1 record
     without a mate and map it single-end at the end."""
-    monkeypatch.setenv("GDIET_DP_FOLD", "1")
     _batch_pairs(monkeypatch, 64)
     lines = (DATA / "reads_pe_2.fq").read_text().splitlines(keepends=True)
     n_pairs = len(lines) // 4 - 37

@@ -6,7 +6,6 @@ non-TPU backend) and the port's step; the sorted hit streams (``upto=
 identical.
 """
 
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -166,11 +165,13 @@ FIXTURE_BUDGETS = dict(Lmax=160, S=32, S2=16, A=64, dp_frac=0.3125)
 
 
 @pytest.mark.parametrize("problem", ["fixture", "repeats"])
-def test_step_fold_bit_equal(data_dir, problem):
-    """The port's step with the folded DP against JAX's unfolded step on
-    the CPU: the fold is SAM-identical (dp_pallas.py:57-58), so meta and
-    ops must be byte-identical."""
-    from gdiet_tpu_torch.ops import dp_fold
+def test_step_fold_bit_equal(data_dir, monkeypatch, problem):
+    """The folded DP on the DP rows the port's step hands to
+    ``extd2_batch``: the fold is SAM-identical (dp_pallas.py:57-58), so its
+    scores and its backtrack equal the step's full width on every live
+    row, and the step itself, which never folds, writes JAX's meta and
+    ops."""
+    from gdiet_tpu_torch.ops import dp_fold, extd2
 
     mi, mo, codes, lens, _ = (_fixture_problem(data_dir) if problem == "fixture"
                               else _repeat_problem())
@@ -178,37 +179,56 @@ def test_step_fold_bit_equal(data_dir, problem):
     jm = FusedMapper(mi, mo, **FIXTURE_BUDGETS)
     tm = tds.TorchFusedMapper(TorchIndex.from_numpy(mi, "cpu"), mo,
                               **FIXTURE_BUDGETS, device="cpu")
-    cfg = dataclasses.replace(tm.cfg, dp_fold=True)
+    dp_batch, seen = extd2.extd2_batch, []
+    monkeypatch.setattr(extd2, "extd2_batch",
+                        lambda *a, **kw: seen.append((a, kw)) or dp_batch(*a, **kw))
     oj = fused_map_step(jnp.asarray(codes), jnp.asarray(lens), **jm.arrays, cfg=jm.cfg)
     calls = dp_fold.calls.n
     ot = tds.fused_map_step(torch.from_numpy(codes), torch.from_numpy(lens),
-                            tm.tables, cfg)
-    assert dp_fold.calls.n == calls + 1
+                            tm.tables, tm.cfg)
+    assert dp_fold.calls.n == calls and len(seen) == 1
     meta = np.asarray(oj["meta"])
     _same("meta", meta, ot["meta"])
     _same("ops", oj["ops"], ot["ops"])
     K = jm.cfg.K
     assert (meta[:, 3 + 11 * K: 3 + 12 * K] >= 0).any()
 
+    (q, t, ln, bd, params, L), kw = seen[0]
+    full = dp_batch(q, t, ln, bd, params, L, **kw)
+    fold = dp_batch(q, t, ln, bd, params, L, fold=True,
+                    state_dtype=extd2.route_state_dtype(params, L, fold=True))
+    assert dp_fold.calls.n == calls + 1
+    live = (ln > 0).numpy()
+    assert live.sum() > 0
+    _same("score", full[0].numpy()[live], fold[0][live])
+    bt_full = extd2.backtrack_band(full[1], ln, ln, bd, L, L)
+    bt_fold = extd2.backtrack_band(fold[1], ln, ln, bd, L, L, fold=True)
+    for name, a, b in zip(("ops", "fin_i", "fin_j"), bt_full, bt_fold):
+        _same(name, a.numpy()[live], b[live])
+
 
 def test_mapper_resolves_fold():
-    """dp_fold folds exactly where the banded window cannot engage
-    (device_step.py:1325-1328), and the retry tier keeps the layout."""
+    """No mapper folds the DP: the single-end mapper, its retry tier and
+    the paired-end path all run the full width (the fold is a
+    kernel-level layout of ``extd2_batch``)."""
+    from gdiet_tpu_torch.io.fastx import SeqRecord
+    from gdiet_tpu_torch.ops import dp, dp_fold
     from gdiet_tpu_torch.pipeline.shortread import ShortReadMapper
 
-    mi, mo, _, _, _ = _tiny_problem(n_reads=4, lmax=128)
+    mi, mo, codes, lens, _ = _tiny_problem(n_reads=4, lmax=128)
     tmi = TorchIndex.from_numpy(mi, "cpu")
-    assert tds.TorchFusedMapper(tmi, mo, Lmax=160, S=32, S2=16, A=64,
-                                device="cpu", dp_fold=True).cfg.dp_fold
     sm = ShortReadMapper(tmi, mo, max_read_len=160, seed_budget=32,
                          shift_seed_budget=16, hit_budget=64, dp_frac=0.3125,
-                         device="cpu", dp_fold=True)
-    assert sm.fused.cfg.dp_fold and sm._retry_mapper().cfg.dp_fold
-    assert not tds.TorchFusedMapper(tmi, mo, Lmax=160, S=32, S2=16, A=64,
-                                    device="cpu").cfg.dp_fold
-    mo.bw_max = 40  # a window of 256 lanes < 384 engages at Lmax 304
-    assert not tds.TorchFusedMapper(tmi, mo, Lmax=304, S=32, S2=16, A=64,
-                                    device="cpu", dp_fold=True).cfg.dp_fold
+                         device="cpu")
+    assert not hasattr(sm.fused.cfg, "dp_fold")
+    seqs = ["".join("ACGTN"[c] for c in row[:n]) for row, n in zip(codes, lens)]
+    reads = [SeqRecord(f"r{i}", s, "I" * len(s)) for i, s in enumerate(seqs)]
+    calls, fold_calls = dp.calls.n, dp_fold.calls.n
+    sm.map_batch(reads)
+    sm._retry_batch_regs(reads)
+    b"".join(bytes(b) for b in sm.map_stream_sam_pe(iter([list(zip(reads[::2],
+                                                                   reads[1::2]))])))
+    assert dp.calls.n >= calls + 3 and dp_fold.calls.n == fold_calls
 
 
 @pytest.mark.parametrize("problem", ["tiny", "fixture"])

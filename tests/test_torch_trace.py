@@ -172,7 +172,7 @@ def _mapper_run(hifi, monkeypatch, reason):
     if reason == "len":
         kw["max_read_len"] = 1024
     elif reason == "front":
-        kw["vote_budget"] = 32  # the front's vote compaction overflows on 5
+        kw["hit_budget"] = 32  # the front's hit budget overflows on 5
     else:
         mo = dataclasses.replace(mo, sdust_thres=20)
     m = longread.LongReadMapper(hifi["mi"], mo, n_threads=3, device="cpu", **kw)

@@ -23,7 +23,6 @@ import pytest
 import torch
 
 from gdiet_tpu_torch.ops import vote
-from gdiet_tpu_torch.pipeline import device_step
 from gdiet_tpu_torch.testing import torch_threads
 
 
@@ -110,11 +109,11 @@ def test_plain_matches_jax(K, seed):
     ref = _vote_scan(jnp.asarray(keys), jnp.asarray(qpos), jnp.asarray(valid),
                      jnp.asarray(strand), jnp.asarray(dist.astype(np.uint64)),
                      jnp.asarray(thr), jnp.asarray(rec), K=K, A=A)
-    calls = device_step.vote_calls.n
+    calls = vote.vote_calls.n
     h = halves(keys, qpos, valid)
     got = vote.vote_scan(*h, *_torch((dist, thr, rec)), K)  # CPU: the plain loop
-    assert device_step.vote_calls.n == calls + 1 and vote.launches.n == 0
-    plain = device_step.vote_scan(*_torch((keys, qpos, valid, strand, dist, thr, rec)), K)
+    assert vote.vote_calls.n == calls + 1 and vote.launches.n == 0
+    plain = vote._vote_scan(*_torch((keys, qpos, valid, strand, dist, thr, rec)), K)
     for name in vote.OUTPUTS:
         want = np.asarray(ref[name])
         have = got[name].numpy()
@@ -145,6 +144,6 @@ def test_cuda_kernel_matches_plain(B, A, K):
     got = vote.vote_scan(*halves(keys, qpos, valid, "cuda"), *per_row, K)
     torch.cuda.synchronize()
     assert vote.launches.n == launches + 1
-    ref = device_step.vote_scan(*_torch((keys, qpos, valid, strand), "cuda"), *per_row, K)
+    ref = vote._vote_scan(*_torch((keys, qpos, valid, strand), "cuda"), *per_row, K)
     for name in vote.OUTPUTS:
         assert torch.equal(got[name], ref[name]), name

@@ -1,5 +1,5 @@
-"""The long-read votes: the port's plain loops (``lr_step._vote_scan_lr``,
-``lr_step._vote2_scan``) vs gdiet_tpu's, the halves-in-place wrappers of
+"""The long-read votes: the port's plain loops (``vote._vote_scan_lr``,
+``vote._vote2_scan``) vs gdiet_tpu's, the halves-in-place wrappers of
 ``ops/vote.py`` on the CPU vs the plain loops on the concatenated stream,
 and ``csrc/vote_lr.cu`` vs the plain loops on the card (seeded streams,
 ONT-sized halves and ``test_torch_vote_lr_warp.py``'s trap streams).
@@ -24,7 +24,6 @@ import pytest
 import torch
 
 from gdiet_tpu_torch.ops import vote
-from gdiet_tpu_torch.pipeline import lr_step
 from gdiet_tpu_torch.testing import torch_threads
 
 
@@ -41,7 +40,7 @@ ROUND2 = ("b_score", "b_fq", "b_lq", "b_str", "b_first_t", "b_last_t")
 def lr_streams(B: int, A: int, seed: int, holes: bool = True) -> dict:
     """A seeded long-read hit stream of B reads, A columns per half. With
     ``holes=False`` the valid columns of each half come first (the
-    precondition of ``ops/vote.py`` and of ``lr_step._stream_columns``)."""
+    precondition of ``ops/vote.py`` and of ``vote._stream_columns``)."""
     rng = np.random.default_rng(seed)
     M = 2 * (A + 1)
     keys = np.full((B, M), U64_MAX, np.uint64)
@@ -104,7 +103,7 @@ def _t(a, device="cpu"):
 
 def halves(s: dict, device="cpu", pad: int = 0) -> list:
     """(fk, fq, fok, rk, rq, rok) of a stream, as column views of [B, A +
-    pad] tensors (row stride A + pad, as the front's vote_budget slice)."""
+    pad] tensors (row stride A + pad: the wrappers take any row stride)."""
     A = (s["keys"].shape[1] - 2) // 2
     out = []
     for name in ("keys", "qpos", "valid"):
@@ -119,7 +118,7 @@ def halves(s: dict, device="cpu", pad: int = 0) -> list:
 def plain_round1(s: dict, K: int, device="cpu") -> dict:
     t = {n: _t(s[n], device) for n in ("keys", "qpos", "valid", "extracted",
                                        "vt_distance", "cov_thr")}
-    return lr_step._vote_scan_lr(t["keys"], t["qpos"], t["valid"], s["strand"].tolist(),
+    return vote._vote_scan_lr(t["keys"], t["qpos"], t["valid"], s["strand"].tolist(),
                                  t["extracted"], t["vt_distance"], t["cov_thr"], K,
                                  list(range(s["keys"].shape[1])))
 
@@ -127,7 +126,7 @@ def plain_round1(s: dict, K: int, device="cpu") -> dict:
 def plain_pair(s: dict, device="cpu") -> torch.Tensor:
     t = {n: _t(s[n], device) for n in ("keys", "qpos", "valid", "extracted",
                                        "vt_distance", "lo1", "hi1", "lo2", "hi2")}
-    return lr_step.vote2_packed_pair(t["keys"], t["qpos"], t["valid"], s["strand"].tolist(),
+    return vote.vote2_packed_pair(t["keys"], t["qpos"], t["valid"], s["strand"].tolist(),
                                      t["extracted"], t["vt_distance"], t["lo1"], t["hi1"],
                                      t["lo2"], t["hi2"], list(range(s["keys"].shape[1])))
 
@@ -147,9 +146,9 @@ def test_plain_round1_matches_jax(K, seed):
 
     s = lr_streams(48, 40, seed)
     ref = _vote_scan_lr(*_jax_args(s), jnp.asarray(s["cov_thr"]), K=K)
-    calls = lr_step.vote_calls.n
+    calls = vote.lr_vote_calls.n
     got = plain_round1(s, K)
-    assert lr_step.vote_calls.n == calls + 1
+    assert vote.lr_vote_calls.n == calls + 1
     for name in vote.LR_OUTPUTS:
         want = np.asarray(ref[name])
         have = got[name].numpy()
@@ -171,10 +170,10 @@ def test_plain_round2_matches_jax():
 
     s = lr_streams(48, 40, 23)
     t = {n: _t(s[n]) for n in ("keys", "qpos", "valid", "extracted", "vt_distance")}
-    calls = lr_step.vote_calls.n
+    calls = vote.lr_vote_calls.n
     for lo, hi in (("lo1", "hi1"), ("lo2", "hi2")):
         ref = _vote2_scan(*_jax_args(s), jnp.asarray(s[lo]), jnp.asarray(s[hi]))
-        got = lr_step._vote2_scan(t["keys"], t["qpos"], t["valid"], s["strand"].tolist(),
+        got = vote._vote2_scan(t["keys"], t["qpos"], t["valid"], s["strand"].tolist(),
                                   t["extracted"], t["vt_distance"], _t(s[lo]), _t(s[hi]),
                                   list(range(s["keys"].shape[1])))
         for name in ROUND2:
@@ -186,7 +185,7 @@ def test_plain_round2_matches_jax():
         empty = (s[hi] <= s[lo] + 1)
         assert empty.any() and (got["b_score"].numpy()[empty] == 0).all()
         assert (got["b_score"].numpy() > 0).sum() > 5
-    assert lr_step.vote_calls.n == calls + 2
+    assert vote.lr_vote_calls.n == calls + 2
 
 
 @pytest.mark.parametrize("K,pad", [(3, 5), (1, 0)])
@@ -199,15 +198,15 @@ def test_wrappers_on_cpu_equal_plain(K, pad):
     h = halves(s, pad=pad)
     assert h[0].stride(0) == 60 + pad
     per_row = [_t(s[n]) for n in ("extracted", "vt_distance")]
-    launches, calls = vote.lr_launches.n, lr_step.vote_calls.n
+    launches, calls = vote.lr_launches.n, vote.lr_vote_calls.n
     got1 = vote.vote_lr(*h, *per_row, _t(s["cov_thr"]), K)
     got2 = vote.vote2_pair(*h, *per_row, *(_t(s[n]) for n in ("lo1", "hi1", "lo2", "hi2")))
-    assert vote.lr_launches.n == launches and lr_step.vote_calls.n == calls + 3
+    assert vote.lr_launches.n == launches and vote.lr_vote_calls.n == calls + 3
     want1 = plain_round1(s, K)
     for name in vote.LR_OUTPUTS:
         assert torch.equal(got1[name], want1[name]), name
     assert torch.equal(got2, plain_pair(s))
-    assert len(lr_step._stream_columns(h[2], h[5])) < s["keys"].shape[1]
+    assert len(vote._stream_columns(h[2], h[5])) < s["keys"].shape[1]
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
 """The decomposition of ``csrc/vote_lr.cu`` (one warp per read half, 32
 columns a step), as a small numpy model, against the port's plain loops
-(``lr_step._vote_scan_lr``, ``lr_step.vote2_packed_pair``) and gdiet_tpu's
+(``vote._vote_scan_lr``, ``vote.vote2_packed_pair``) and gdiet_tpu's
 scans (``_vote_scan_lr``, ``_vote2_scan``) on the CPU.
 
 The model does what the kernel does, step by step: each half of a read is
